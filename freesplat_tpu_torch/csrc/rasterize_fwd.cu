@@ -24,7 +24,11 @@
 // The per-tile instance count is capped at 16384 (MAX_CHUNKS * CHUNK of
 // the TPU kernel); the host reports what the cap drops.
 //
-// Output per pixel: r, g, b, depth (unnormalized), log T.
+// Output per pixel: r, g, b, depth (unnormalized), log T; and the
+// backward's residual ``walk``: one past the index of the last instance
+// the pixel blended (0 if none).  The backward walks each pixel's
+// instances from walk - 1 down to 0 and recovers T before each one from
+// the final log T, so it never re-walks the forward.
 //
 // What bounds it on the H100: the instance reads.  Every tile pass reads
 // 40 B per instance from L2/DRAM (about 47 MB at the 384x512 slice shape,
@@ -50,7 +54,7 @@ constexpr float T_EPS = 1e-4f;
 __global__ void __launch_bounds__(PIX)
 composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start,
               const int* __restrict__ tile_count, int tiles_x,
-              float* __restrict__ out) {
+              float* __restrict__ out, int* __restrict__ walk) {
   __shared__ float s_inst[BATCH * NF];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -62,6 +66,7 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
   float log_t = 0.0f;  // log transmittance over blended instances
   float trans = 1.0f;  // expf(log_t)
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
+  int walked = 0;  // one past the last blended instance
   bool done = false;
 
   for (int base = 0; base < cnt; base += BATCH) {
@@ -92,6 +97,7 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
       acc_d = acc_d + w * d[9];
       log_t = log_t_next;
       trans = trans_next;
+      walked = base + j + 1;
     }
   }
 
@@ -101,18 +107,20 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
   o[2] = acc_b;
   o[3] = acc_d;
   o[4] = log_t;
+  walk[(long long)t * PIX + p] = walked;
 }
 
 }  // namespace
 
 // inst: (k, 10) f32; tile_start, tile_count: (num_tiles,) i32;
-// out: (num_tiles, 256, 5) f32.  Launches on ``stream``; returns
-// cudaGetLastError() of the launch (0 on success).
+// out: (num_tiles, 256, 5) f32; walk: (num_tiles, 256) i32.  Launches on
+// ``stream``; returns cudaGetLastError() of the launch (0 on success).
 extern "C" int freesplat_rasterize_fwd(const float* inst, const int* tile_start,
                                        const int* tile_count, int num_tiles,
-                                       int tiles_x, float* out, void* stream) {
+                                       int tiles_x, float* out, int* walk,
+                                       void* stream) {
   if (num_tiles <= 0) return 0;
   composite_fwd<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      inst, tile_start, tile_count, tiles_x, out);
+      inst, tile_start, tile_count, tiles_x, out, walk);
   return static_cast<int>(cudaGetLastError());
 }

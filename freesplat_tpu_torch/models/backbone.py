@@ -30,9 +30,14 @@ FEATURE_CHANNELS = (24, 48, 64, 160, 256)
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` over NHWC channels.
 
-    ``use_running_average=False`` normalizes with the batch statistics and
-    leaves the running buffers untouched (serving never mutates state).
-    flax momentum 0.9 is torch momentum 0.1."""
+    ``use_running_average=False`` normalizes with the batch statistics.  In
+    ``train()`` mode it then updates the running buffers as flax does with
+    a mutable ``batch_stats``: ``ra = 0.9 ra + 0.1 stat``, where the
+    variance is the biased batch variance.  ``F.batch_norm`` updates with
+    the unbiased one, ``n / (n - 1)`` times larger, so it writes that term
+    into a zeroed buffer and the running variance takes it scaled back;
+    the statistics come out of the same reduction that normalizes.  In
+    ``eval()`` mode (serving) the buffers are never touched."""
 
     def __init__(self, ch: int, use_running_average: bool):
         super().__init__()
@@ -47,9 +52,17 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
                              self.running_var, self.weight, self.bias,
                              training=False, eps=1e-3)
-        else:
+            return y.permute(0, 2, 3, 1)
+        if not self.training:
             y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, self.weight,
-                             self.bias, training=True, momentum=0.1, eps=1e-3)
+                             self.bias, training=True, eps=1e-3)
+            return y.permute(0, 2, 3, 1)
+        var_term = torch.zeros_like(self.running_var)  # becomes 0.1 * unbiased var
+        y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean, var_term,
+                         self.weight, self.bias, training=True, momentum=0.1, eps=1e-3)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            self.running_var.mul_(0.9).add_(var_term, alpha=(n - 1) / n)
         return y.permute(0, 2, 3, 1)
 
 

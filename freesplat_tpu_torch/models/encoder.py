@@ -126,9 +126,9 @@ class EncoderFreeSplat(nn.Module):
         self.hr_skip = Conv(3, cfg.d_feature, 7, 1, 3)
         self.fuse = FuseScene(cfg)
 
-    def forward(self, context: dict[str, torch.Tensor]) -> dict[str, Any]:
-        """context: image (b, v, h, w, 3) in [0, 1]; intrinsics (b, v, 3, 3)
-        normalized; extrinsics (b, v, 4, 4) c2w; near/far (b, v)."""
+    def trunk(self, context: dict[str, torch.Tensor]) -> dict[str, Any]:
+        """Backbone -> cost volume -> CVEncoder -> DepthDecoder -> hr_skip:
+        the per-view PTF inputs (the JAX ``trunk_only`` output dict)."""
         cfg = self.cfg
         images = context["image"]
         extr, intr = context["extrinsics"], context["intrinsics"]
@@ -168,16 +168,32 @@ class EncoderFreeSplat(nn.Module):
         depths = outputs["depth_s-1"][..., 0]
         weights = outputs["depth_weights"]
         means = unproject_depth(depths.reshape(b, v, h, w), intr, extr, (h, w))
+        return {
+            "feat_v": gauss_feats.reshape(b, v, hw, cfg.d_feature),
+            "coords_v": means.reshape(b, v, hw, 3),
+            "dens_v": densities.reshape(b, v, hw, 1),
+            "wt_v": weights.reshape(b, v, hw, 1),
+            "depth_v": depths.reshape(b, v, hw),
+            "depth_s-1": depths.reshape(b, v, h, w),
+            "densities": densities.reshape(b, v, h, w),
+            "depth_weights": weights.reshape(b, v, h, w),
+            **{
+                f"depth_s{s}": outputs[f"depth_s{s}"].reshape(
+                    b, v, *outputs[f"depth_s{s}"].shape[1:3]
+                )
+                for s in range(4)
+            },
+        }
 
-        feat_v = gauss_feats.reshape(b, v, hw, cfg.d_feature)
-        dens_v = densities.reshape(b, v, hw, 1)
-        wt_v = weights.reshape(b, v, hw, 1)
-        depth_v = depths.reshape(b, v, hw)
-        coords_v = means.reshape(b, v, hw, 3)
-
+    def forward(self, context: dict[str, torch.Tensor]) -> dict[str, Any]:
+        """context: image (b, v, h, w, 3) in [0, 1]; intrinsics (b, v, 3, 3)
+        normalized; extrinsics (b, v, 4, 4) c2w; near/far (b, v)."""
+        trunk = self.trunk(context)
+        extr, intr = context["extrinsics"], context["intrinsics"]
+        b, v, h, w, _ = context["image"].shape
         per_scene = [
-            self.fuse(feat_v[i], coords_v[i], dens_v[i], wt_v[i], depth_v[i],
-                      extr[i], intr[i], (h, w))
+            self.fuse(trunk["feat_v"][i], trunk["coords_v"][i], trunk["dens_v"][i],
+                      trunk["wt_v"][i], trunk["depth_v"][i], extr[i], intr[i], (h, w))
             for i in range(b)
         ]
         gaussians = Gaussians(*(torch.stack(x) for x in zip(*(p[0] for p in per_scene))))
@@ -189,14 +205,10 @@ class EncoderFreeSplat(nn.Module):
                 "rotations": torch.stack([p[2] for p in per_scene]),
             },
             "num_gaussians": num_valid,
-            "gs_ratio": num_valid / (v * hw),
-            "depth_s-1": depths.reshape(b, v, h, w),
-            "densities": densities.reshape(b, v, h, w),
-            "depth_weights": weights.reshape(b, v, h, w),
+            "gs_ratio": num_valid / (v * h * w),
         }
-        for s in range(4):
-            d_s = outputs[f"depth_s{s}"]
-            results[f"depth_s{s}"] = d_s.reshape(b, v, *d_s.shape[1:3])
+        for k in ("depth_s-1", "densities", "depth_weights", *(f"depth_s{s}" for s in range(4))):
+            results[k] = trunk[k]
         return results
 
 
@@ -221,9 +233,12 @@ def init_like_flax(module: nn.Module, seed: int) -> nn.Module:
 
 
 def make_encoder(
-    cfg: EncoderFreeSplatCfg, device: str | torch.device = "cuda", seed: int = 0
+    cfg: EncoderFreeSplatCfg, device: str | torch.device = "cuda", seed: int = 0,
+    train: bool = False,
 ) -> EncoderFreeSplat:
     """The encoder on ``device`` (default the GPU; raises without one),
-    with weights initialized from ``seed``."""
+    with weights initialized from ``seed``.  ``train=False`` (serving):
+    ``eval()`` mode, BN buffers never touched.  ``train=True``: ``train()``
+    mode, so batch-statistics BN also updates its running buffers."""
     device = resolve_device(device)
-    return init_like_flax(EncoderFreeSplat(cfg), seed).to(device).eval()
+    return init_like_flax(EncoderFreeSplat(cfg), seed).to(device).train(train)

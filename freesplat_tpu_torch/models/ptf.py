@@ -125,7 +125,7 @@ def _fuse_one_view(
     fusion_mask = (zbuf - depth_i).abs() < torch.clamp(depth_i * 0.05, min=depth_thres)
     matched = fusion_mask & has_winner
 
-    gathered = packed[torch.where(matched, winner, 0)]
+    gathered = packed.index_select(0, torch.where(matched, winner, 0))
     g_feat = gathered[:, :c]
     g_density = gathered[:, c : c + 1]
     g_weight = gathered[:, c + 1 : c + 2]

@@ -37,7 +37,10 @@ def bilinear_sample(
     def tap(xi, yi, weight):
         inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1) + boff
-        return flat[idx] * (weight * inside)[..., None]
+        # index_select: its backward is index_add_ (atomics on the GPU),
+        # where flat[idx]'s sorts the indices first.
+        rows = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c)
+        return rows * (weight * inside)[..., None]
 
     return (
         tap(x0i, y0i, (1 - wx) * (1 - wy))

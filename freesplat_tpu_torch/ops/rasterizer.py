@@ -1,7 +1,6 @@
 """Tile rasterizer: host-side binning plus a hand-written CUDA compositor.
 
-Port of ``freesplat_tpu/ops/rasterizer.py`` (forward only; the backward
-kernel comes with the training slice).
+Port of ``freesplat_tpu/ops/rasterizer.py``, forward and backward.
 
 1.  Preprocessing (``ops/rendering.py``) is plain tensor code.
 2.  Binning is tensor code without gradients: CUDA ``getRect`` tile
@@ -10,10 +9,14 @@ kernel comes with the training slice).
     sort by (tile, depth) packed into an int64 key.  The raw ``capacity``
     cut happens before the prune, as in the JAX package, so ``dropped``
     and ``num_instances`` agree with it exactly.
-3.  Compositing is ``csrc/rasterize_fwd.cu`` (one block per 16x16 tile),
-    launched by ``composite_tiles`` for CUDA tensors.  For CPU tensors
-    ``composite_tiles`` runs ``composite_tiles_plain``, the same
-    arithmetic in PyTorch, which is also the kernel's judge on the card.
+3.  Compositing is ``composite_tiles``, a ``torch.autograd.Function``:
+    its forward is ``csrc/rasterize_fwd.cu`` and its backward
+    ``csrc/rasterize_bwd.cu`` (one block per 16x16 tile each) on CUDA
+    tensors.  On CPU tensors it runs ``composite_tiles_plain`` and
+    ``composite_tiles_plain_bwd``, the same arithmetic in PyTorch, which
+    are also the kernels' judges on the card.  Gradients reach the
+    Gaussians through the gather in ``build_instance_rows`` (torch's index
+    backward, a scatter-add, as XLA's outside the Pallas call).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ CAPACITY_FLOOR = 32768
 OUT_CH = 5  # r g b depth logT
 
 # Kernel launches by wrapper since the last reset (one per launch).
-launch_count = {"rasterize_fwd": 0}
+launch_count = {"rasterize_fwd": 0, "rasterize_bwd": 0}
 
 
 def render_capacity(num_gaussians: int, factor: float) -> int:
@@ -164,7 +167,9 @@ def build_instance_rows(screen: Screen, binning: TileBinning) -> torch.Tensor:
         ],
         dim=-1,
     ).float()
-    return packed[binning.sorted_ids].contiguous()
+    # index_select: its backward is index_add_ (atomics on the GPU), where
+    # packed[ids]'s sorts the ids first and accumulates repeats serially.
+    return packed.index_select(0, binning.sorted_ids)
 
 
 def _pixel_coords(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -186,9 +191,13 @@ def composite_tiles_plain(
     """Plain PyTorch version of ``csrc/rasterize_fwd.cu``.
 
     Walks instance j of every tile at once, front to back, with the
-    kernel's arithmetic step for step.  Returns (num_tiles, P, 5):
-    r, g, b, unnormalized depth, log T; with ``count_pairs`` also the
-    number of (pixel, instance) pairs evaluated before termination."""
+    kernel's arithmetic step for step.  Returns (out, walk): out
+    (num_tiles, P, 5) = r, g, b, unnormalized depth, log T; walk
+    (num_tiles, P) int32, one past the last instance each pixel blended
+    (the backward's residual).  With ``count_pairs`` a third element
+    counts the (pixel, instance) pairs evaluated before termination, and
+    of those the pairs blended and the pairs that terminated a pixel:
+    (evaluated, blended, stopped)."""
     num_tiles = tile_start.shape[0]
     dev = inst.device
     px, py = _pixel_coords(num_tiles, tiles_x, dev)
@@ -198,14 +207,13 @@ def composite_tiles_plain(
     trans = torch.ones(num_tiles, P, device=dev)
     acc = torch.zeros(num_tiles, P, 4, device=dev)
     done = torch.zeros(num_tiles, P, dtype=torch.bool, device=dev)
-    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    walk = torch.zeros(num_tiles, P, dtype=torch.int32, device=dev)
+    pairs = torch.zeros(3, dtype=torch.int64, device=dev)
     steps = int(cnt.max()) if num_tiles else 0
     for j in range(steps):
         if j % 64 == 0 and j and bool((done | (cnt <= j)[:, None]).all()):
             break  # every pixel terminated or ran out of instances
         live = (j < cnt)[:, None]
-        if count_pairs:
-            pairs = pairs + (live & ~done).sum()
         d = inst[torch.where(j < cnt, start + j, 0)]  # (num_tiles, 10)
         dx = px - d[:, 0:1]
         dy = py - d[:, 1:2]
@@ -216,27 +224,218 @@ def composite_tiles_plain(
         trans_next = torch.exp(log_t_next)
         stop = ~cut & (trans_next < TRANSMITTANCE_EPS)
         blend = ~cut & ~stop
+        if count_pairs:
+            pairs = pairs + torch.stack([(live & ~done).sum(), blend.sum(), stop.sum()])
         w = torch.where(blend, alpha * trans, 0.0)
         acc = acc + w[..., None] * d[:, None, 6:10]
         log_t = torch.where(blend, log_t_next, log_t)
         trans = torch.where(blend, trans_next, trans)
+        walk = torch.where(blend, j + 1, walk)
         done = done | stop
     out = torch.cat([acc, log_t[..., None]], dim=-1)
-    return (out, int(pairs)) if count_pairs else out
+    return (out, walk, tuple(pairs.tolist())) if count_pairs else (out, walk)
+
+
+def composite_tiles_plain_bwd(
+    inst: torch.Tensor,  # (k, 10) f32
+    tile_start: torch.Tensor,  # (num_tiles,) i32
+    tile_count: torch.Tensor,  # (num_tiles,) i32
+    tiles_x: int,
+    out: torch.Tensor,  # (num_tiles, P, 5) forward output
+    walk: torch.Tensor,  # (num_tiles, P) i32 forward residual
+    grad: torch.Tensor,  # (num_tiles, P, 5) cotangent of ``out``
+    count_pairs: bool = False,
+):
+    """Plain PyTorch version of ``csrc/rasterize_bwd.cu``: d loss / d inst.
+
+    Walks instance index j of every tile at once, back to front from the
+    largest walk, with the kernel's per-pixel arithmetic: T before j comes
+    from the final log T (``log T_j = log T_{j+1} - log1p(-alpha_j)``), the
+    strict suffix sum S_j = sum_{k>j} w_k (g.c_k) is carried, and
+
+        dalpha = (g.c) T_j - (S_j + dL/dlogT) / max(1 - alpha, 1e-6)
+
+    on the instances the forward blended; dpow = dalpha * alpha_u where
+    alpha_u <= 0.99 (zero subgradient of the clamp).  The per-instance sums
+    over the tile's pixels give the (k, 10) rows; rows no pixel reached
+    are zero.  With ``count_pairs`` also returns the (pixel, instance)
+    pairs walked and, of those, the pairs that contributed."""
+    num_tiles = tile_start.shape[0]
+    dev = inst.device
+    px, py = _pixel_coords(num_tiles, tiles_x, dev)
+    cnt = torch.clamp(tile_count.long(), max=MAX_TILE_INSTANCES)
+    start = tile_start.long()
+    g0, g1, g2, g3, g_logt = grad.unbind(-1)
+    log_t = out[..., 4].clone()
+    suffix = torch.zeros(num_tiles, P, device=dev)
+    dinst = torch.zeros_like(inst)
+    walked = torch.zeros((), dtype=torch.int64, device=dev)
+    contributed = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = int(walk.max()) if walk.numel() else 0
+    for j in reversed(range(steps)):
+        has = j < cnt
+        d = inst[torch.where(has, start + j, 0)]  # (num_tiles, 10)
+        dx = px - d[:, 0:1]
+        dy = py - d[:, 1:2]
+        power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) - d[:, 3:4] * dx * dy
+        alpha_u = d[:, 5:6] * torch.exp(power)
+        alpha = torch.clamp(alpha_u, max=ALPHA_MAX)
+        contrib = (j < walk) & ~((power > 0.0) | (alpha < ALPHA_MIN))
+        if count_pairs:
+            walked = walked + (j < walk).sum()
+            contributed = contributed + contrib.sum()
+        log_t0 = log_t - torch.log1p(-alpha)
+        t_excl = torch.exp(log_t0)
+        w = torch.where(contrib, alpha * t_excl, 0.0)
+        cg = g0 * d[:, 6:7] + g1 * d[:, 7:8] + g2 * d[:, 8:9] + g3 * d[:, 9:10]
+        dalpha = cg * t_excl - (suffix + g_logt) / torch.clamp(1.0 - alpha, min=1e-6)
+        dpow = torch.where(contrib & (alpha_u <= ALPHA_MAX), dalpha * alpha_u, 0.0)
+        pdx = dpow * dx
+        pdy = dpow * dy
+        s = torch.stack(
+            [dpow, pdx, pdy, pdx * dx, pdy * dy, pdx * dy, w * g0, w * g1, w * g2, w * g3],
+            dim=-1,
+        ).sum(1)  # (num_tiles, 10)
+        op = d[:, 5]
+        row = torch.stack(
+            [
+                d[:, 2] * s[:, 1] + d[:, 3] * s[:, 2],
+                d[:, 4] * s[:, 2] + d[:, 3] * s[:, 1],
+                -0.5 * s[:, 3],
+                -s[:, 5],
+                -0.5 * s[:, 4],
+                torch.where(op > 0.0, s[:, 0] / torch.where(op > 0.0, op, 1.0), 0.0),
+                s[:, 6], s[:, 7], s[:, 8], s[:, 9],
+            ],
+            dim=-1,
+        )
+        dinst[(start + j)[has]] = row[has]
+        log_t = torch.where(contrib, log_t0, log_t)
+        suffix = torch.where(contrib, suffix + w * cg, suffix)
+    return (dinst, int(walked), int(contributed)) if count_pairs else dinst
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_entry():
-    """The C entry point of csrc/rasterize_fwd.cu (built at first use)."""
+def _kernel_entry(name: str):
+    """The C entry point of csrc/<name>.cu (built at first use)."""
     from ..utils.cuda_build import load_library
 
-    fn = load_library("rasterize_fwd").freesplat_rasterize_fwd
+    fn = getattr(load_library(name), f"freesplat_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = {
+        # inst, tile_start, tile_count, num_tiles, tiles_x, out, walk, stream
+        "rasterize_fwd": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr],
+        # inst, tile_start, tile_count, num_tiles, tiles_x, fwd_out, walk,
+        # cot, dinst, stream
+        "rasterize_bwd": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr],
+    }[name]
     return fn
+
+
+def _check(name: str, inst: torch.Tensor, tiles_x: int, **tensors) -> None:
+    """Device, dtype, contiguity and shapes of a kernel's arguments."""
+    num_tiles = tensors["tile_start"].shape[0]
+    shapes = {
+        "tile_start": ((num_tiles,), torch.int32),
+        "tile_count": ((num_tiles,), torch.int32),
+        "out": ((num_tiles, P, OUT_CH), torch.float32),
+        "walk": ((num_tiles, P), torch.int32),
+        "grad": ((num_tiles, P, OUT_CH), torch.float32),
+    }
+    if inst.dim() != 2 or inst.shape[1] != 10 or inst.dtype != torch.float32:
+        raise ValueError(f"{name}: inst must be (k, 10) float32, got "
+                         f"{tuple(inst.shape)} {inst.dtype}")
+    for key, x in (("inst", inst), *tensors.items()):
+        if key != "inst" and (tuple(x.shape), x.dtype) != shapes[key]:
+            raise ValueError(f"{name}: {key} must be {shapes[key][1]} of shape "
+                             f"{shapes[key][0]}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != inst.device or not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous on {inst.device}, "
+                             f"got {x.device}")
+    if num_tiles % tiles_x:
+        raise ValueError(f"{name}: {num_tiles} tiles is no whole number of rows of {tiles_x}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = _kernel_entry(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launch_count[name] += 1
+
+
+def _kernel_device(name: str, inst: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (take the plain version); any other device raises."""
+    if inst.device.type == "cpu":
+        return False
+    if inst.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {inst.device}")
+    return True
+
+
+def composite_tiles_fwd(
+    inst: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tiles_x: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out (num_tiles, P, 5), walk (num_tiles, P) int32): CUDA tensors
+    launch the ``rasterize_fwd`` kernel (and count the launch), CPU tensors
+    take ``composite_tiles_plain``."""
+    if not _kernel_device("rasterize_fwd", inst):
+        return composite_tiles_plain(inst, tile_start, tile_count, tiles_x)
+    _check("rasterize_fwd", inst, tiles_x, tile_start=tile_start, tile_count=tile_count)
+    num_tiles = tile_start.shape[0]
+    out = torch.empty((num_tiles, P, OUT_CH), dtype=torch.float32, device=inst.device)
+    walk = torch.empty((num_tiles, P), dtype=torch.int32, device=inst.device)
+    _launch("rasterize_fwd", inst.device, inst.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), num_tiles, tiles_x, out.data_ptr(), walk.data_ptr())
+    return out, walk
+
+
+def composite_tiles_bwd(
+    inst: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tiles_x: int,
+    out: torch.Tensor,
+    walk: torch.Tensor,
+    grad: torch.Tensor,
+) -> torch.Tensor:
+    """d loss / d inst (k, 10): CUDA tensors launch the ``rasterize_bwd``
+    kernel (and count the launch), CPU tensors take
+    ``composite_tiles_plain_bwd``."""
+    if not _kernel_device("rasterize_bwd", inst):
+        return composite_tiles_plain_bwd(inst, tile_start, tile_count, tiles_x, out, walk, grad)
+    _check("rasterize_bwd", inst, tiles_x, tile_start=tile_start, tile_count=tile_count,
+           out=out, walk=walk, grad=grad)
+    dinst = torch.empty_like(inst)
+    _launch("rasterize_bwd", inst.device, inst.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), tile_start.shape[0], tiles_x, out.data_ptr(),
+            walk.data_ptr(), grad.data_ptr(), dinst.data_ptr())
+    return dinst
+
+
+class _CompositeTiles(torch.autograd.Function):
+    """The TPU package's custom_vjp around its two Pallas kernels."""
+
+    @staticmethod
+    def forward(ctx, inst, tile_start, tile_count, tiles_x):
+        out, walk = composite_tiles_fwd(inst, tile_start, tile_count, tiles_x)
+        ctx.save_for_backward(inst, tile_start, tile_count, out, walk)
+        ctx.tiles_x = tiles_x
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        inst, tile_start, tile_count, out, walk = ctx.saved_tensors
+        dinst = composite_tiles_bwd(inst, tile_start, tile_count, ctx.tiles_x, out, walk,
+                                    grad.contiguous())
+        return dinst, None, None, None
 
 
 def composite_tiles(
@@ -247,45 +446,10 @@ def composite_tiles(
 ) -> torch.Tensor:
     """Composite every tile: (num_tiles, P, 5) = r, g, b, depth, log T.
 
-    CUDA tensors launch the ``rasterize_fwd`` kernel (and count the launch);
-    CPU tensors take ``composite_tiles_plain``.  Forward only: inputs that
-    require grad are refused until the backward kernel exists."""
-    if inst.requires_grad:
-        raise RuntimeError(
-            "composite_tiles has no backward yet; call it under torch.no_grad()"
-        )
-    if inst.device.type == "cpu":
-        return composite_tiles_plain(inst, tile_start, tile_count, tiles_x)
-    if inst.device.type != "cuda":
-        raise RuntimeError(f"composite_tiles: unsupported device {inst.device}")
-    num_tiles = tile_start.shape[0]
-    for name, x, dtype in (
-        ("inst", inst, torch.float32),
-        ("tile_start", tile_start, torch.int32),
-        ("tile_count", tile_count, torch.int32),
-    ):
-        if x.device != inst.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(
-                f"composite_tiles: {name} must be a contiguous {dtype} tensor "
-                f"on {inst.device}, got {x.dtype} on {x.device}"
-            )
-    if inst.dim() != 2 or inst.shape[1] != 10:
-        raise ValueError(f"composite_tiles: inst must be (k, 10), got {tuple(inst.shape)}")
-    if tile_count.shape != (num_tiles,) or num_tiles % tiles_x:
-        raise ValueError("composite_tiles: tile_start/tile_count/tiles_x disagree")
-
-    fn = _kernel_entry()
-    out = torch.empty((num_tiles, P, OUT_CH), dtype=torch.float32, device=inst.device)
-    with torch.cuda.device(inst.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            inst.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-            num_tiles, tiles_x, out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rasterize_fwd launch failed: cudaError {rc}")
-    launch_count["rasterize_fwd"] += 1
-    return out
+    Differentiable in ``inst``: the forward is ``composite_tiles_fwd``, the
+    backward ``composite_tiles_bwd`` (the CUDA kernels on CUDA tensors,
+    their plain versions on CPU tensors)."""
+    return _CompositeTiles.apply(inst, tile_start, tile_count, tiles_x)
 
 
 def rasterize(

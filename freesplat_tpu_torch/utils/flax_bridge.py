@@ -1,4 +1,4 @@
-"""Flax variables (nested dicts of numpy arrays) -> the port's state_dict.
+"""Flax variables (nested dicts of numpy arrays) <-> the port's state_dict.
 
 The port's modules keep the flax module names, so the mapping is
 mechanical: ``params/backbone/stage0_block0/conv/kernel`` becomes
@@ -10,6 +10,10 @@ mechanical: ``params/backbone/stage0_block0/conv/kernel`` becomes
 - dense kernel (I, O) -> weight (O, I);
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+The encoder and the LPIPS module (``vgg.conv{b}_{c}``, ``lin{l}``) both
+map this way.  ``torch_to_jax_variables`` is the reverse map, so tests
+can hold parameters after an update against the JAX state.
 """
 from __future__ import annotations
 
@@ -79,3 +83,37 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
         )
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def torch_to_jax_variables(module: nn.Module) -> dict[str, dict]:
+    """The module's parameters and BN buffers as flax variables
+    ``{"params": ..., "batch_stats": ...}`` of numpy arrays (flax
+    layouts), the inverse of ``jax_variables_to_torch``."""
+    from ..models.backbone import BatchNorm
+
+    tree: dict[str, dict] = {}
+
+    def put(coll: str, path: str, leaf: str, t: torch.Tensor, perm=None):
+        arr = t.detach().cpu().numpy()
+        node = tree.setdefault(coll, {})
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = arr.transpose(perm) if perm else arr
+
+    for path, m in module.named_modules():
+        own = dict(m.named_parameters(recurse=False))
+        if not own:
+            continue
+        if isinstance(m, BatchNorm):
+            put("params", path, "scale", m.weight)
+            put("params", path, "bias", m.bias)
+            put("batch_stats", path, "mean", m.running_mean)
+            put("batch_stats", path, "var", m.running_var)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+            perm = (2, 3, 1, 0) if isinstance(m, nn.Conv2d) else (1, 0)
+            put("params", path, "kernel", m.weight, perm)
+            if m.bias is not None:
+                put("params", path, "bias", m.bias)
+        else:
+            raise KeyError(f"no flax layout for {type(m).__name__} at '{path}'")
+    return tree

@@ -52,6 +52,17 @@ def test_entry_points_default_to_cuda_and_refuse_cpu(monkeypatch):
         run_test(cfg, batches=iter([]))
 
 
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from freesplat_tpu_torch.training.lpips import make_lpips
+    from freesplat_tpu_torch.training.trainer import TrainCfg, init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_state(TrainCfg(encoder=EncoderFreeSplatCfg(num_depth_candidates=8)), seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_lpips(seed=0)
+
+
 def test_run_test_refuses_unported_options():
     cfg = load_config(["+experiment=scannet/2views"])  # save_depth defaults on
     with pytest.raises(NotImplementedError, match="save_depth"):
