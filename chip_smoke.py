@@ -28,17 +28,39 @@
    ms per step and its forward / backward / optimizer split, peak memory
    and one profiled warm step; then both kernels are held against their
    plain versions on a target view of the trained Gaussians and timed.
-6. Prints the kernel table as one JSON line, the card line, and last
+6. Row gather: ``gather_rows`` (``csrc/gather_rows.cu``) equals its plain
+   version exactly at the six probe shapes and on wrapped and
+   out-of-range indices (NaN); kernel, plain and ``torch.gather`` timed
+   at the largest shape (device time of back-to-back calls), with the
+   bytes bound.
+7. Probes: ``scripts/probe_r3.main(["all"])`` in-process; the gather and
+   both compositing kernels must launch, the gather must equal
+   ``np.take_along_axis`` at the six shapes, and the rasterizer probe's
+   kernel vs plain color and gradient must agree.
+8. CLI training: ``main`` with ``+experiment=scannet/2views`` on the
+   synthetic stream rendered by the tile rasterizer (8 target views,
+   LPIPS weights saved from a seed under ``build/``) trains 4 steps,
+   checkpoints at step 2 and validates at step 3 inside a temporary
+   directory; launches are checked per path (data renders, 8 of each
+   kernel a train step, validation renders); then a second ``main``
+   resumes from the checkpoint, whose restored tensors must equal the
+   saved ones.
+9. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -62,6 +84,12 @@ FLOPS_PER_PAIR_CUT, FLOPS_PER_PAIR_STOP, FLOPS_PER_PAIR = 16, 20, 29
 FLOPS_PER_PAIR_BWD_CUT, FLOPS_PER_PAIR_BWD = 16, 57
 TRAIN_STEPS = 5
 TRAIN_TARGET_VIEWS = 8  # the ScanNet train sampler's num_target_views
+# Row gather, counted from csrc/gather_rows.cu: per element one index read,
+# one value read and one value written (12 B); the wrap, the range test and
+# the address take 4 integer operations.
+GATHER_BYTES_PER_ELEM, GATHER_OPS_PER_ELEM = 12, 4
+CLI_STEPS = 4
+ROOT = Path(__file__).resolve().parent
 
 
 def log(*a):
@@ -339,11 +367,22 @@ def view_inputs(encoder, capacity_factor, scene, view=0):
     return inst, binning, ctx, tgt
 
 
-def reset_launch_counts():
+def _count_dicts():
     from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.scripts import probe_r3
 
-    for k in R.launch_count:
-        R.launch_count[k] = 0
+    return R.launch_count, probe_r3.launch_count
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset."""
+    return {k: v for d in _count_dicts() for k, v in d.items()}
+
+
+def reset_launch_counts():
+    for d in _count_dicts():
+        for k in d:
+            d[k] = 0
 
 
 def slice_run():
@@ -371,9 +410,10 @@ def slice_run():
     t0 = time.perf_counter()
     summary = run_test(cfg, batches=iter(scenes), device=DEVICE, timings=timings)
     wall = time.perf_counter() - t0
-    launches = dict(R.launch_count)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
-    if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0}:
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
+                                         "gather_rows": 0}:
         raise AssertionError(f"serving launches {launches} for {views} target views")
     if not all(math.isfinite(v) for v in summary.values()):
         raise AssertionError(f"non-finite summary {summary}")
@@ -438,10 +478,11 @@ def train_run():
                 log_fn=lambda step, vals: logged.append((step, vals)), timings=timings)
     sync()
     wall = time.perf_counter() - t0
-    launches = dict(R.launch_count)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     want = TRAIN_TARGET_VIEWS * TRAIN_STEPS
-    if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want}:
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
+                                         "gather_rows": 0}:
         raise AssertionError(f"training launches {launches}, want {want} of each kernel")
     if [s for s, _ in logged] != list(range(TRAIN_STEPS)):
         raise AssertionError(f"fit logged steps {[s for s, _ in logged]}")
@@ -490,6 +531,235 @@ def train_run():
     return launches, cmp[:2], timing
 
 
+def gather_phase():
+    """The gather kernel vs its plain version at the probe shapes (exactly:
+    a gather does no arithmetic) and on wrapped and out-of-range indices
+    (NaN in the same places); kernel, plain and ``torch.gather`` times and
+    the bound at the largest shape.  Returns (max abs error, (ms, plain
+    ms, library ms, bound ms, bound by))."""
+    import torch
+    from freesplat_tpu_torch.scripts import probe_r3 as P
+    from freesplat_tpu_torch.utils.timing import device_bench
+
+    err = 0.0
+    for rows, lanes in P.GATHER_SHAPES:
+        x_np, idx_np = P.gather_inputs(rows, lanes)
+        x, idx = torch.from_numpy(x_np).to(DEVICE), torch.from_numpy(idx_np).to(DEVICE)
+        d = (P.gather_rows(x, idx) - P.gather_rows_plain(x, idx)).abs().max().item()
+        if d != 0.0:
+            raise AssertionError(f"gather_rows ({rows},{lanes}) vs plain: max abs error {d}")
+        err = max(err, d)
+    rng = np.random.default_rng(4)
+    rows, lanes = 640, 96
+    x = torch.from_numpy(rng.standard_normal((rows, lanes)).astype(np.float32)).to(DEVICE)
+    idx = torch.from_numpy(rng.integers(-2 * rows, 2 * rows, (rows, lanes)).astype(np.int32)).to(DEVICE)
+    k, p = P.gather_rows(x, idx), P.gather_rows_plain(x, idx)
+    nan = torch.isnan(p)
+    d = (k[~nan] - p[~nan]).abs().max().item()
+    if not (torch.equal(torch.isnan(k), nan) and d == 0.0 and nan.any()):
+        raise AssertionError(f"gather_rows vs plain on wrapped/out-of-range indices: NaN "
+                             f"places differ or max abs error {d}")
+    err = max(err, d)
+
+    rows, lanes = P.GATHER_SHAPES[-1]
+    x_np, idx_np = P.gather_inputs(rows, lanes)
+    x, idx = torch.from_numpy(x_np).to(DEVICE), torch.from_numpy(idx_np).to(DEVICE)
+    idx64 = idx.long()  # torch.gather's index type, made outside the timed call
+    fns = {"kernel": (P.gather_rows, idx), "plain": (P.gather_rows_plain, idx),
+           "torch.gather": (lambda a, i: torch.gather(a, 0, i), idx64)}
+    # Device time of back-to-back calls (the table stays in L2 between
+    # calls, as in the probe's loop), and beside it the CUDA-event time of
+    # a loop of calls launched from Python, which host overhead holds up.
+    dev = {k: device_bench(f, [(x, i)], n=50) * 1e3 for k, (f, i) in fns.items()}
+    evt = {k: cuda_ms(lambda f=f, i=i: f(x, i), reps=50) for k, (f, i) in fns.items()}
+    el = rows * lanes
+    bound = _bound(el * GATHER_BYTES_PER_ELEM, el * GATHER_OPS_PER_ELEM)
+    log(f"[gather] {len(P.GATHER_SHAPES)} probe shapes and the wrap/NaN case equal the "
+        f"plain version (max abs error {err}). ({rows},{lanes}) device ms per call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+        + "; CUDA-event ms per call of a Python loop: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in evt.items())
+        + f"; bound {bound[0]:.4f} ms ({bound[1]}; {el * GATHER_BYTES_PER_ELEM} B)")
+    return err, (dev["kernel"], dev["plain"], dev["torch.gather"], *bound)
+
+
+def probe_run():
+    """``scripts/probe_r3.main(["all"])`` in-process, as a user runs it.
+    Returns its launches and results."""
+    from freesplat_tpu_torch.scripts import probe_r3
+
+    reset_launch_counts()
+    results = probe_r3.main(["all"], device=DEVICE)
+    launches = launch_counts()
+    if DEVICE == "cuda" and not all(launches.values()):
+        raise AssertionError(f"probe path launches {launches}: a kernel was not launched")
+    r = results["raster"]
+    if not (r["color_max_abs"] <= TOL_COLOR and r["grad_rel"] <= TOL_GRAD):
+        raise AssertionError(f"probe raster kernel vs plain: {r}")
+    log(f"[probe] launches {launches}")
+    return launches, results
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what ``main`` printed."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_run():
+    """``main`` trains CLI_STEPS steps on the synthetic stream (checkpoint
+    at step 2, validation at step 3) in a temporary directory, then a
+    second ``main`` resumes from the checkpoint.  Launches are split by
+    path: data renders (each batch drawn), validation renders and the
+    train steps (the rest)."""
+    import torch
+    from freesplat_tpu_torch import main as M
+    from freesplat_tpu_torch.training import checkpoint as C
+    from freesplat_tpu_torch.training import validation as V
+    from freesplat_tpu_torch.training.lpips import make_lpips, save_lpips_params
+    from freesplat_tpu_torch.utils.flax_bridge import torch_to_jax_variables
+
+    lpips_path = ROOT / "build" / "lpips_seed111124.npz"  # no pretrained weights ship
+    lpips_path.parent.mkdir(parents=True, exist_ok=True)
+    save_lpips_params(torch_to_jax_variables(make_lpips(device=DEVICE, seed=111124)),
+                      str(lpips_path))
+    by_path = {"cli_data": {}, "cli_train": {}, "cli_val": {}}
+    draws, vals, restored = [0], [0], []
+
+    def add(path, before):
+        now = launch_counts()
+        for k in now:
+            by_path[path][k] = by_path[path].get(k, 0) + now[k] - before[k]
+
+    orig_batches, orig_val, orig_restore = M.make_batches, V.validation_step, M.restore_checkpoint
+
+    def counted_batches(*a, **kw):
+        it = orig_batches(*a, **kw)
+
+        def gen():
+            while True:
+                before = launch_counts()
+                batch = next(it, None)
+                add("cli_data", before)
+                if batch is None:
+                    return
+                draws[0] += 1
+                yield batch
+
+        return gen()
+
+    def counted_val(*a, **kw):
+        before = launch_counts()
+        out = orig_val(*a, **kw)
+        add("cli_val", before)
+        vals[0] += 1
+        return out
+
+    def checked_restore(directory, step, state, strict=True):
+        state = orig_restore(directory, step, state, strict)
+        saved = C.load_checkpoint(directory, step, "cpu")
+        for k, v in state["encoder"].state_dict().items():
+            if not torch.equal(v.cpu(), saved["encoder"][k]):
+                raise AssertionError(f"restored {k} differs from the checkpoint")
+        opt = state["optimizer"].state_dict()["state"]
+        for i, s in saved["optimizer"]["state"].items():
+            for k, v in s.items():
+                if not torch.equal(opt[i][k].cpu(), v):
+                    raise AssertionError(f"restored Adam {k} of parameter {i} differs")
+        restored.append((step, state["step"], len(saved["encoder"]), len(opt)))
+        return state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = ["+experiment=scannet/2views", "dataset.name=synthetic",
+                "dataset.synthetic_renderer=tile", "dataset.synthetic_num_targets=8",
+                "decoder.capacity_factor=8.0", f"dataset.image_shape=[{H},{W}]",
+                f"trainer.max_steps={CLI_STEPS}", "checkpointing.every_n_train_steps=2",
+                "trainer.val_check_interval=3", "trainer.log_every=1",
+                f"loss.lpips.weights_path={lpips_path}"]
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the logger and validation write under outputs/local
+        M.make_batches, V.validation_step, M.restore_checkpoint = (
+            counted_batches, counted_val, checked_restore)
+        try:
+            runs = []
+            for extra, steps in (([f"checkpointing.output_dir={tmp / 'ckpt'}"], CLI_STEPS),
+                                 ([f"checkpointing.load={tmp / 'ckpt'}",
+                                   f"checkpointing.output_dir={tmp / 'ckpt2'}"], 1)):
+                reset_launch_counts()
+                draws[0] = vals[0] = 0
+                for p in by_path.values():
+                    p.clear()
+                tee = _Tee(sys.stdout)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    M.main(args + extra, device=DEVICE)
+                sync()
+                wall = time.perf_counter() - t0
+                total = launch_counts()
+                for k in total:
+                    by_path["cli_train"][k] = (total[k] - by_path["cli_data"].get(k, 0)
+                                               - by_path["cli_val"].get(k, 0))
+                runs.append((steps, draws[0], vals[0], {p: dict(v) for p, v in by_path.items()},
+                             tee.buf.getvalue(), wall))
+        finally:
+            M.make_batches, V.validation_step, M.restore_checkpoint = (
+                orig_batches, orig_val, orig_restore)
+            os.chdir(cwd)
+        metrics = [json.loads(line)
+                   for line in (tmp / "outputs/local/metrics.jsonl").read_text().splitlines()]
+        files_ok = {
+            "step_2": (tmp / "ckpt" / "step_2" / "state.pt").exists(),
+            "val png": (tmp / "outputs/local/val_0000003.png").exists(),
+            "val_metrics.txt": (tmp / "outputs/local/val_metrics.txt").exists(),
+        }
+    if not all(files_ok.values()):
+        raise AssertionError(f"CLI outputs missing: {files_ok}")
+    if not restored or restored[0][:2] != (2, 3):
+        raise AssertionError(f"resume restored {restored}, want step_2 holding state step 3")
+    if "restored checkpoint step 2" not in runs[1][4]:
+        raise AssertionError("the resumed run did not print 'restored checkpoint step 2'")
+    views = 2 + 8  # context + target views rendered for each batch drawn
+    for steps, n_draws, n_vals, paths, _, _ in runs:
+        want = {
+            "cli_data": {"rasterize_fwd": views * n_draws, "rasterize_bwd": 0},
+            "cli_train": {"rasterize_fwd": 8 * steps, "rasterize_bwd": 8 * steps},
+            "cli_val": {"rasterize_fwd": 8 * n_vals, "rasterize_bwd": 0},
+        }
+        got = {p: {k: v.get(k, 0) for k in ("rasterize_fwd", "rasterize_bwd")}
+               for p, v in paths.items()}
+        if DEVICE == "cuda" and (got != want or n_vals != 1):
+            raise AssertionError(f"CLI launches {got}, want {want} ({n_draws} batches drawn, "
+                                 f"{n_vals} validations)")
+    if [m["step"] for m in metrics] != [*range(CLI_STEPS), CLI_STEPS - 1]:
+        raise AssertionError(f"CLI logged steps {[m['step'] for m in metrics]}")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()) or m["dropped_instances"] != 0:
+            raise AssertionError(f"CLI step {m['step']}: {m}")
+    step_ms = [1e3 / m["steps_per_s"] for m in metrics]
+    log(f"[cli] {CLI_STEPS} steps then 1 resumed, walls {runs[0][5]:.2f} s and {runs[1][5]:.2f} s; "
+        f"ms per logged step (data draw + step; step 3 also the step-2 checkpoint) "
+        f"{[round(t, 2) for t in step_ms]}; loss {[round(m['loss'], 5) for m in metrics]}; "
+        f"restored {restored[0][2]} tensors and {restored[0][3]} Adam states; launches "
+        f"{runs[0][3]} then {runs[1][3]}")
+    total = {}
+    for run in runs:
+        for p, counts in run[3].items():
+            for k, v in counts.items():
+                total.setdefault(p, {}).setdefault(k, 0)
+                total[p][k] += v
+    return total, step_ms
+
+
 def profile_window(fn, label):
     """torch.profiler over one warm call of ``fn``: the device's busy share
     of the host wall time and the top kernels by device time."""
@@ -535,7 +805,7 @@ def main() -> int:
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"tf32 cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    names = ["rasterize_fwd", "rasterize_bwd"]
+    names = ["rasterize_fwd", "rasterize_bwd", "gather_rows"]
     cuda_build.build_all(names)
     log(f"[build] {names} in {time.perf_counter() - t0:.2f} s")
     for k in names:
@@ -548,10 +818,15 @@ def main() -> int:
     errs.append(serve_err)
     train_launches, train_err, timing = train_run()
     errs.append(train_err)
+    gather_err, gather_t = gather_phase()
+    probe_launches, probe = probe_run()
+    cli_launches, _ = cli_run()
     for k, (ms, plain_ms, bound_ms, bound_by) in bench_t.items():
         log(f"[bench] {k} at the bench scene: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
 
+    paths = {"serve": serve_launches, "train": train_launches, "probe": probe_launches,
+             **cli_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]
@@ -561,7 +836,7 @@ def main() -> int:
             "source": f"freesplat_tpu_torch/csrc/{name}.cu",
             "replaces": f"freesplat_tpu/ops/rasterizer.py:{line}",
             "launches": train_launches[name],
-            "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
+            "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
             "max_abs_err": max(e[i] for e in errs),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -569,6 +844,21 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
         })
+    ms, plain_ms, lib_ms, bound_ms, bound_by = gather_t
+    rows.append({
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "freesplat_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "freesplat_tpu/scripts/probe_r3.py:31",
+        "launches": probe_launches["gather_rows"],
+        "launches_by_path": {p: c.get("gather_rows", 0) for p, c in paths.items()},
+        "max_abs_err": max(gather_err, *(r["max_abs_err"] for r in probe["gather"])),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

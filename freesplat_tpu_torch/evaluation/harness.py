@@ -2,9 +2,10 @@
 views in chunks, warn on dropped rasterizer instances, score PSNR.
 
 Port of the per-scene loop of ``freesplat_tpu/evaluation/harness.py::
-run_test``.  Not ported yet: dataset loading (pass ``batches``), SSIM,
-LPIPS, depth metrics, image/depth/PLY/video dumps, ``view_shard`` and
-``encode_view_chunk``; a cfg that asks for one raises NotImplementedError.
+run_test``; without ``batches`` it reads the configured dataset
+(``main.make_batches``).  Not ported yet: SSIM, LPIPS, depth metrics,
+image/depth/PLY/video dumps, ``view_shard`` and ``encode_view_chunk``; a
+cfg that asks for one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from ..config.config import RootCfg
 from ..models.decoder import render_views
 from ..models.encoder import make_encoder
+from ..training.checkpoint import latest_step, load_checkpoint
 from ..training.metrics import compute_psnr
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import load_flax_variables
@@ -54,21 +56,31 @@ def run_test(
     timings: dict[str, list[float]] | None = None,
 ) -> dict[str, float]:
     """Evaluate ``batches`` (dicts of numpy arrays or tensors with batch 1:
-    ``scene``, ``context`` and ``target`` views) and return the view-weighted
-    per-scene averages.
+    ``scene``, ``context`` and ``target`` views; default the configured
+    dataset's test stage, 4 scenes of a synthetic one) and return the
+    view-weighted per-scene averages.
 
     ``state``: flax variables ({"params", "batch_stats"}, bridged) or the
-    port's state_dict; None initializes the encoder from ``cfg.seed``.
-    ``timings``, if given, collects per scene "encoder_s" and
-    "decoder_s_per_view" (host clock around synchronized device work)."""
+    port's state_dict; None takes the encoder of the latest checkpoint
+    under ``checkpointing.load`` if there is one, else initializes it from
+    ``cfg.seed``.  ``timings``, if given, collects per scene "encoder_s"
+    and "decoder_s_per_view" (host clock around synchronized device work)."""
     device = resolve_device(device)
     unsupported = _unsupported(cfg, lpips_params)
     if unsupported:
         raise NotImplementedError(f"run_test: not ported yet: {unsupported}")
-    if batches is None:
-        raise NotImplementedError("run_test: dataset loading is not ported yet; pass batches")
     if max_scenes is None:
         max_scenes = cfg.test.max_scenes
+        if max_scenes is None and cfg.dataset.name == "synthetic":
+            max_scenes = 4  # the synthetic stream is infinite
+    if batches is None:
+        from ..main import make_batches  # the CLI's dataset routing
+
+        batches = make_batches(cfg, "test", device=device)
+    if state is None and cfg.checkpointing.load is not None:
+        step = latest_step(cfg.checkpointing.load)
+        if step is not None:
+            state = load_checkpoint(cfg.checkpointing.load, step)["encoder"]
 
     encoder = make_encoder(
         dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),

@@ -472,6 +472,15 @@ def rasterize(
     ``return_stats`` a fourth element {"dropped", "num_instances"} counts
     the instances cut by the capacity budget / per-tile cap.  ``capacity``
     is rounded up to 128 (default ``render_capacity(n, 3.0)``)."""
+    return _rasterize(composite_tiles, means, covariances, harmonics, opacities,
+                      extrinsics, intrinsics, image_shape, background, sh_degree,
+                      capacity, return_stats)
+
+
+def _rasterize(composite, means, covariances, harmonics, opacities, extrinsics,
+               intrinsics, image_shape, background, sh_degree, capacity, return_stats):
+    """``rasterize`` with the compositor ``composite`` (``composite_tiles``,
+    or a function of the same signature that a probe holds against it)."""
     h, w = image_shape
     if capacity is None:
         capacity = render_capacity(means.shape[0], 3.0)
@@ -484,7 +493,7 @@ def rasterize(
     binning = bin_gaussians(screen, image_shape, capacity)
     inst = build_instance_rows(screen, binning)
     th, tw = _tile_grid(image_shape)
-    out = composite_tiles(inst, binning.tile_start, binning.tile_count, tw)
+    out = composite(inst, binning.tile_start, binning.tile_count, tw)
 
     img = out.reshape(th, tw, TILE, TILE, OUT_CH).permute(0, 2, 1, 3, 4)
     img = img.reshape(th * TILE, tw * TILE, OUT_CH)[:h, :w]

@@ -63,6 +63,26 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
         make_lpips(seed=0)
 
 
+def test_cli_probe_and_data_entry_points_default_to_cuda(monkeypatch):
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+    from freesplat_tpu_torch.main import main
+    from freesplat_tpu_torch.scripts import probe_r3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["dataset.name=synthetic"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        probe_r3.main(["gather"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic_batches(SyntheticCfg())  # before the first batch is drawn
+    # A kernel wrapper takes its plain version for CPU tensors only.
+    x = torch.zeros(4, 8, device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        probe_r3.gather_rows(x, torch.zeros(4, 8, dtype=torch.int32, device="meta"))
+    assert torch.equal(probe_r3.gather_rows(torch.ones(4, 8), torch.zeros(4, 8, dtype=torch.int32)),
+                       torch.ones(4, 8))
+
+
 def test_run_test_refuses_unported_options():
     cfg = load_config(["+experiment=scannet/2views"])  # save_depth defaults on
     with pytest.raises(NotImplementedError, match="save_depth"):
