@@ -1,6 +1,6 @@
 """Drive the PyTorch port on an NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 1. Requires a CUDA device; prints the card (nvidia-smi name and power
    limit), the torch/CUDA versions and the TF32 flags.
@@ -9,11 +9,19 @@
    ptxas report.
 3. Kernels vs their plain PyTorch versions on the card: the rasterizer
    test cases at their small sizes, then the 384x512 bench scene
-   (n = 393,216, seed 0, sh_degree 2).  Forward: color/alpha atol 2e-5,
-   depth atol 2e-4, the ``walk`` residual exactly, equal dropped /
+   (n = 393,216, seed 0, sh_degree 2).  Forward: bit-equal (color, depth
+   and log T max |d| 0, the ``walk`` residual equal), equal dropped /
    num_instances against the CPU binning.  Backward (numpy-seeded
    cotangents): every dinst column within 2e-4 after scaling by the
-   column's largest magnitude.
+   column's largest magnitude, every value finite.  At the bench scene,
+   the served view and the train view: both kernels' device time
+   (``utils/timing.py::device_bench``), the plain versions' time, each
+   kernel's bound, the tile counts and largest walks, and the
+   (warp, instance) steps of each kernel with and without the per-warp
+   cull (``ops/rasterizer.py::warp_steps_plain``).  With ``--baseline
+   DIR`` the rasterizer kernels built from ``DIR/rasterize_{fwd,bwd}.cu``
+   (another tree's sources) are also held against these there and timed
+   beside them in turns (baseline, this, this, baseline).
 4. Serving: the ``scannet/2views`` preset (384x512, 2 context views,
    D = 128, fp32) with weights from a seed serves 3 numpy-made scenes of
    3 target views through ``run_test``.  The forward's launch count must
@@ -50,8 +58,11 @@
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -66,7 +77,7 @@ import numpy as np
 
 H, W = 384, 512
 DEVICE = "cuda"
-TOL_COLOR, TOL_DEPTH = 2e-5, 2e-4
+TOL_COLOR = 2e-5  # the rasterizer probe's kernel vs plain color
 TOL_GRAD = 2e-4  # after scaling by each dinst column's largest magnitude
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
@@ -90,6 +101,7 @@ TRAIN_TARGET_VIEWS = 8  # the ScanNet train sampler's num_target_views
 GATHER_BYTES_PER_ELEM, GATHER_OPS_PER_ELEM = 12, 4
 CLI_STEPS = 4
 ROOT = Path(__file__).resolve().parent
+BASELINE: Path | None = None  # --baseline: another tree's csrc to time against
 
 
 def log(*a):
@@ -161,7 +173,8 @@ def screen_inputs(args, shape, sh_degree, capacity, device):
 
 def compare_tiles(inst, binning, tiles_x, seed=0):
     """Forward and backward kernels vs their plain versions on the same
-    inputs (numpy-seeded cotangent).  Returns (forward max abs error,
+    inputs (numpy-seeded cotangent): the forward bit-equal, the backward
+    within TOL_GRAD scaled.  Returns (forward max abs error,
     backward max abs error, forward (evaluated, blended, stopped) pairs,
     backward (walked, contributing) pairs, the kernel forward's (out, walk), the cotangent, and the
     backward's largest error after scaling by each column's max)."""
@@ -173,11 +186,10 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
         k, k_walk = R.composite_tiles_fwd(*args)
         p, p_walk, pairs = R.composite_tiles_plain(*args, count_pairs=True)
     sync()
-    rgb = (k[..., 0:3] - p[..., 0:3]).abs().max().item() if k.numel() else 0.0
-    alpha = (torch.exp(k[..., 4]) - torch.exp(p[..., 4])).abs().max().item() if k.numel() else 0.0
-    depth = (k[..., 3] - p[..., 3]).abs().max().item() if k.numel() else 0.0
-    if not (rgb <= TOL_COLOR and alpha <= TOL_COLOR and depth <= TOL_DEPTH):
-        raise AssertionError(f"forward kernel vs plain: color {rgb} alpha {alpha} depth {depth}")
+    rgb, depth, log_t = ((k[..., c] - p[..., c]).abs().max().item() if k.numel() else 0.0
+                         for c in (slice(0, 3), 3, 4))
+    if not (rgb == 0.0 and depth == 0.0 and log_t == 0.0):
+        raise AssertionError(f"forward kernel vs plain: color {rgb} depth {depth} log T {log_t}")
     if not torch.equal(k_walk, p_walk):
         raise AssertionError(f"forward kernel vs plain: walk residual differs at "
                              f"{int((k_walk != p_walk).sum())} pixels")
@@ -195,7 +207,7 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
         bwd_err = diff.max().item()
     if not (scaled <= TOL_GRAD and bool(torch.isfinite(dk).all())):
         raise AssertionError(f"backward kernel vs plain: scaled error {scaled}, abs {bwd_err}")
-    return max(rgb, alpha, depth), bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
+    return max(rgb, depth, log_t), bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
 
 
 def kernel_cases() -> tuple[float, float]:
@@ -247,19 +259,83 @@ def _bound(bytes_moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(inst, binning, tiles_x, cmp, label):
-    """Kernel and plain times (CUDA events) and the bound of each kernel,
-    for one input, from ``compare_tiles``' results ``cmp``."""
+@functools.lru_cache(maxsize=None)
+def _baseline_fn(name: str):
+    """The C entry point of ``BASELINE/<name>.cu``, built at first use."""
+    from freesplat_tpu_torch.utils import cuda_build
+
+    return getattr(ctypes.CDLL(str(cuda_build.build(name, csrc=BASELINE))), f"freesplat_{name}")
+
+
+@contextlib.contextmanager
+def baseline_kernels():
+    """Inside, the rasterizer wrappers launch the kernels built from
+    ``BASELINE`` (typed as this tree's) in place of this tree's."""
     from freesplat_tpu_torch.ops import rasterizer as R
+
+    own = R._kernel_entry
+
+    def entry(name):
+        fn, ref = _baseline_fn(name), own(name)
+        fn.restype, fn.argtypes = ref.restype, ref.argtypes
+        return fn
+
+    R._kernel_entry = entry
+    try:
+        yield
+    finally:
+        R._kernel_entry = own
+
+
+def baseline_times(args, out, walk, cot, label):
+    """The baseline kernels held against this tree's (forward bit-equal,
+    backward within TOL_GRAD scaled) and both timed in device time, in
+    turns: baseline, this, this, baseline."""
+    import torch
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.utils.timing import device_bench
+
+    bwd_args = (*args, out, walk, cot)
+    with baseline_kernels():
+        bo, bw = R.composite_tiles_fwd(*args)
+        db = R.composite_tiles_bwd(*bwd_args)
+    if not (torch.equal(bo, out) and torch.equal(bw, walk)):
+        raise AssertionError(f"{label}: baseline forward differs from this tree's")
+    dk = R.composite_tiles_bwd(*bwd_args)
+    if dk.numel():
+        scaled = ((dk - db).abs().max(0).values / dk.abs().max(0).values.clamp(min=1e-30)).max()
+        if not float(scaled) <= TOL_GRAD:
+            raise AssertionError(f"{label}: baseline backward vs this tree's: scaled {scaled}")
+    for name, fn, a in (("rasterize_fwd", R.composite_tiles_fwd, args),
+                        ("rasterize_bwd", R.composite_tiles_bwd, bwd_args)):
+        turns = []
+        for baseline in (True, False, False, True):
+            with baseline_kernels() if baseline else contextlib.nullcontext():
+                turns.append(device_bench(fn, [a], n=20) * 1e3)
+        log(f"[time]   {name} baseline vs this tree, device ms in turns (baseline, this, "
+            f"this, baseline): {', '.join(f'{t:.4f}' for t in turns)}")
+
+
+def time_kernels(inst, binning, tiles_x, cmp, label):
+    """Both kernels' device time (``device_bench``: back-to-back launches),
+    the plain versions' (CUDA events around one call), each kernel's bound
+    and the warp-steps of each kernel with and without the cull, for one
+    input, from ``compare_tiles``' results ``cmp``.  With ``BASELINE`` set,
+    also ``baseline_times``."""
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.utils.timing import device_bench
 
     _, _, pairs, (walked, contributed), (out, walk), cot, _ = cmp
     args = (inst, binning.tile_start, binning.tile_count, tiles_x)
     saved = dict(R.launch_count)
-    fwd = (cuda_ms(lambda: R.composite_tiles_fwd(*args), reps=20),
+    fwd = (device_bench(R.composite_tiles_fwd, [args], n=20) * 1e3,
            cuda_ms(lambda: R.composite_tiles_plain(*args), reps=1))
-    bwd = (cuda_ms(lambda: R.composite_tiles_bwd(*args, out, walk, cot), reps=20),
+    bwd = (device_bench(R.composite_tiles_bwd, [(*args, out, walk, cot)], n=20) * 1e3,
            cuda_ms(lambda: R.composite_tiles_plain_bwd(*args, out, walk, cot), reps=1))
+    if BASELINE is not None:
+        baseline_times(args, out, walk, cot, label)
     R.launch_count.update(saved)  # timing launches are not the main path's
+    steps = R.warp_steps_plain(*args, walk)
     num_tiles = binning.tile_start.shape[0]
     k = inst.shape[0]
     # Forward: read inst and the tile ranges, write out (5 ch) and walk.
@@ -273,11 +349,19 @@ def time_kernels(inst, binning, tiles_x, cmp, label):
                  + (evaluated - blended - stopped) * FLOPS_PER_PAIR_CUT)
     fwd_bound = _bound(fwd_bytes, fwd_flops)
     bwd_bound = _bound(bwd_bytes, bwd_flops)
-    log(f"[time] {label}: instances {k}, dropped {int(binning.dropped)}")
-    log(f"[time]   forward: kernel {fwd[0]:.4f} ms, plain {fwd[1]:.2f} ms, bound "
+    log(f"[time] {label}: instances {k}, dropped {int(binning.dropped)}; {steps['tiles']} "
+        f"tiles, instances a tile max {steps['tile_count_max']} mean "
+        f"{steps['tile_count_mean']:.1f}, largest walk a tile max {steps['tile_walk_max']} "
+        f"mean {steps['tile_walk_mean']:.1f}")
+    log(f"[time]   warp-steps: forward {steps['fwd']} without the cull, {steps['fwd_cull']} "
+        f"with; backward {steps['bwd_tile_start']} from each tile's largest walk, "
+        f"{steps['bwd']} from each warp's, {steps['bwd_cull']} with the cull, "
+        f"{steps['bwd_reducing']} reducing (with or without the cull); the busiest warp "
+        f"{steps['fwd_cull_warp_max']} forward, {steps['bwd_cull_warp_max']} backward")
+    log(f"[time]   forward: kernel {fwd[0]:.4f} ms (device time), plain {fwd[1]:.2f} ms, bound "
         f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}; {fwd_bytes} B, {evaluated} pixel-instance "
         f"pairs evaluated, {blended} blended, {stopped} terminating)")
-    log(f"[time]   backward: kernel {bwd[0]:.4f} ms, plain {bwd[1]:.2f} ms, bound "
+    log(f"[time]   backward: kernel {bwd[0]:.4f} ms (device time), plain {bwd[1]:.2f} ms, bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}; {bwd_bytes} B, {walked} pairs walked, "
         f"{contributed} contributing)")
     return {"rasterize_fwd": (*fwd, *fwd_bound), "rasterize_bwd": (*bwd, *bwd_bound)}
@@ -790,7 +874,13 @@ def profile_window(fn, label):
         log(f"[profile]   {sum(v):9.3f} ms  x{len(v):<5d} {name[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global BASELINE
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on an NVIDIA GPU.")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="a directory holding another tree's rasterize_{fwd,bwd}.cu, "
+                         "held against this tree's kernels and timed beside them")
+    BASELINE = ap.parse_args(argv).baseline
     import torch
 
     if not torch.cuda.is_available():

@@ -6,12 +6,15 @@
 // the MXU and double-buffered DMA are TPU means and are gone.
 //
 // Design.  One thread block per 16x16 pixel tile, one thread per pixel
-// (256 threads), as the forward (csrc/rasterize_fwd.cu).  Each pixel
-// walks its instances back to front, from walk - 1 (the forward's
-// residual: one past its last blended instance) down to 0.  The block
-// walks from the largest walk of the tile, in batches of BATCH instances
-// staged in shared memory, last batch first.  Per pixel and instance j
-// (only where the forward blended j: j < walk, power <= 0 and
+// (256 threads), each warp an 8x4 pixel block, as the forward
+// (csrc/rasterize_fwd.cu, tile_cull.cuh).  Each pixel walks its instances
+// back to front, from walk - 1 (the forward's residual: one past its last
+// blended instance) down to 0.  The block stages batches of BATCH
+// instances in shared memory, last batch first, each thread one instance
+// and its 8-bit warp mask.  Each warp starts at its own largest walk and
+// visits only the instances whose mask bit it holds (a ballot over 32 at a
+// time, highest first); the rest cost it nothing.  Per pixel and instance
+// j (only where the forward blended j: j < walk, power <= 0 and
 // alpha >= 1/255):
 //   log T_j  = log T_{j+1} - log1p(-alpha_j)    (T before j, from the
 //              final log T the forward wrote, as JAX does at l.542)
@@ -22,19 +25,31 @@
 //              else 0 (the 0.99 clamp's deliberate zero subgradient)
 // and the ten per-instance sums over the tile's pixels
 //   dpow, dpow dx, dpow dy, dpow dx^2, dpow dy^2, dpow dx dy, w g (4)
-// give d(mean xy, conic, opacity, rgb, depth).  The sums are reduced with
-// warp shuffles (skipped when no lane of the warp contributes), the eight
-// warp partials go through shared memory, and one thread per instance
-// writes its dinst row.  Every instance belongs to exactly one tile, so
-// no global atomics are needed.  Rows the walk never reaches (behind
-// every pixel's last blend, or past the 16384 per-tile cap) are zeroed
-// here, so the output needs no memset.
+// give d(mean xy, conic, opacity, rgb, depth).
 //
-// What bounds it on the H100: the arithmetic per (pixel, instance) pair
-// (two expf, one log1pf and ~40 flops) and the ten warp reductions per
-// instance, not the bytes (40 B read and 40 B written per instance, 40 B
-// read per pixel).
+// Reduction.  A warp that visits an instance with any contributing lane
+// reduces the ten sums transposed: at lane offset 16 each half keeps five
+// sums and sends the other five (5 shuffles), then 5 -> 3 at offset 8,
+// 3 -> 2 at 4, 2 -> 1 at 2 and a last add at 1: 12 shuffles instead of
+// 50.  Sum k = 5 b4 + 3 b3 + 2 b2 + b1 then sits whole in the lanes of
+// those bits (b4 = lane bit 16, ..., b1 = lane bit 2); ``SUM_LANES``
+// marks one lane of each.  Those ten lanes write the warp's partial to shared
+// memory (zeros when no lane contributed).  One thread per instance then
+// adds the partials of the warps that visited it, in warp order, and
+// writes its dinst row: the adds' order is fixed, so the kernel is
+// deterministic, and every instance belongs to one tile, so no atomics.
+// Rows the walk never reaches (behind every pixel's last blend, or past
+// the 16384 per-tile cap) are zeroed here, so the output needs no memset.
+//
+// What bounds it on the H100: the (warp, instance) steps, each with two
+// expf, one log1pf and ~40 flops per lane, and the shuffles of the
+// reduction (one warp shuffle a clock per SM), not the bytes (40 B read
+// and 40 B written per instance, 44 B read per pixel).  The per-warp
+// start and the cull cut the steps; the transposed reduction cuts the
+// shuffles a step fourfold.
 #include <cuda_runtime.h>
+
+#include "tile_cull.cuh"
 
 namespace {
 
@@ -49,23 +64,52 @@ constexpr int OUT_CH = 5;         // r g b depth logT
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr unsigned FULL = 0xffffffffu;
+// Lanes that hold a whole sum after the transposed reduction: 0 2 4 8 10
+// (sums 0-4) and 16 18 20 24 26 (sums 5-9).
+constexpr unsigned SUM_LANES = 0x05150515u;
 
-__global__ void __launch_bounds__(PIX)
+// One level of the transposed reduction: lanes whose ``off`` bit is 0 keep
+// the first ceil(N/2) of their N slots, the others the last floor(N/2)
+// (the unused slot reads zero); each sends the partner what it does not
+// keep.
+template <int N>
+__device__ __forceinline__ void halve(const float (&v)[N], float (&r)[(N + 1) / 2],
+                                      int off, bool upper) {
+  constexpr int H = (N + 1) / 2;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float lo = v[k];
+    const float hi = k + H < N ? v[k + H] : 0.0f;
+    const float keep = upper ? hi : lo;
+    const float send = upper ? lo : hi;
+    r[k] = keep + __shfl_xor_sync(FULL, send, off);
+  }
+}
+
+// Six blocks an SM (at most 40 registers a thread): the 768 tiles of a
+// 384x512 view then fit in one wave (132 SMs x 6 = 792 slots), where the
+// compiler's own choice (55 registers left 4 blocks an SM and a second, partial
+// wave).
+__global__ void __launch_bounds__(PIX, 6)
 composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start,
               const int* __restrict__ tile_count, int tiles_x,
               const float* __restrict__ fwd_out, const int* __restrict__ walk,
               const float* __restrict__ cot, float* __restrict__ dinst) {
   __shared__ float s_inst[BATCH * NF];
   __shared__ float s_part[NWARP][BATCH][NS];
-  __shared__ int s_maxw;
+  __shared__ unsigned char s_mask[BATCH];
+  __shared__ int s_wmax[NWARP];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int p = tile_cull::pixel_of_thread(i);
   const long long start = tile_start[t];
   const int count = tile_count[t];
-  const float px = (float)((t % tiles_x) * TILE + p % TILE);
-  const float py = (float)((t / tiles_x) * TILE + p / TILE);
+  const float x0 = (float)((t % tiles_x) * TILE);
+  const float y0 = (float)((t / tiles_x) * TILE);
+  const float px = x0 + (float)(p % TILE);
+  const float py = y0 + (float)(p / TILE);
   const long long pix = (long long)t * PIX + p;
 
   const int my_walk = walk[pix];
@@ -74,86 +118,113 @@ composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start
   float log_t = fwd_out[pix * OUT_CH + 4];  // log T after the current instance
   float suffix = 0.0f;                      // sum_{k>j} w_k (g.c_k)
 
-  if (p == 0) s_maxw = 0;
+  const int wmax = min((int)__reduce_max_sync(FULL, (unsigned)my_walk), MAX_INST);
+  if (lane == 0) s_wmax[warp] = wmax;
   __syncthreads();
-  const int wmax = __reduce_max_sync(FULL, (unsigned)my_walk);
-  if (lane == 0) atomicMax(&s_maxw, wmax);
-  __syncthreads();
-  const int maxw = min(s_maxw, MAX_INST);
+  int maxw = 0;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) maxw = max(maxw, s_wmax[w]);
 
   for (int end = maxw; end > 0; end -= BATCH) {
     const int base = max(end - BATCH, 0);
     const int nb = end - base;
     __syncthreads();  // the previous round's readers are done
-    const float* src = inst + (start + base) * NF;
-    for (int k = p; k < nb * NF; k += PIX) s_inst[k] = src[k];
+    if (i < nb) {
+      const float2* src = reinterpret_cast<const float2*>(inst + (start + base + i) * NF);
+      float row[NF];
+#pragma unroll
+      for (int k = 0; k < NF / 2; ++k) {
+        const float2 v = src[k];
+        row[2 * k] = v.x;
+        row[2 * k + 1] = v.y;
+      }
+#pragma unroll
+      for (int k = 0; k < NF; ++k) s_inst[i * NF + k] = row[k];
+      s_mask[i] = (unsigned char)tile_cull::warp_mask(row, x0, y0);
+    }
     __syncthreads();
 
-    for (int jj = nb - 1; jj >= 0; --jj) {
-      const int j = base + jj;
-      float v[NS];
+    // This warp's instances of the batch: [base, min(end, wmax)), top first.
+    const int hi = min(end, wmax) - base;
+    for (int c0 = (hi - 1) & ~31; c0 >= 0 && hi > 0; c0 -= 32) {
+      const int jl = c0 + lane;
+      unsigned bits = __ballot_sync(FULL, jl < hi && ((s_mask[min(jl, hi - 1)] >> warp) & 1u));
+      while (bits) {
+        const int top = 31 - __clz(bits);
+        bits &= ~(1u << top);
+        const int jj = c0 + top;
+        const int j = base + jj;
+        float v[NS];
 #pragma unroll
-      for (int k = 0; k < NS; ++k) v[k] = 0.0f;
-      bool contrib = false;
-      if (j < my_walk) {
-        const float* d = s_inst + jj * NF;
-        const float dx = px - d[0];
-        const float dy = py - d[1];
-        const float power = -0.5f * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy;
-        const float alpha_u = d[5] * expf(power);
-        const float alpha = fminf(ALPHA_MAX, alpha_u);
-        if (!(power > 0.0f || alpha < ALPHA_MIN)) {
-          contrib = true;
-          const float l1m = log1pf(-alpha);
-          const float log_t0 = log_t - l1m;
-          const float t_excl = expf(log_t0);
-          const float w = alpha * t_excl;
-          const float cg = g0 * d[6] + g1 * d[7] + g2 * d[8] + g3 * d[9];
-          const float dalpha =
-              cg * t_excl - (suffix + g_logt) / fmaxf(1.0f - alpha, 1e-6f);
-          const float dpow = alpha_u <= ALPHA_MAX ? dalpha * alpha_u : 0.0f;
-          const float pdx = dpow * dx;
-          const float pdy = dpow * dy;
-          v[0] = dpow;
-          v[1] = pdx;
-          v[2] = pdy;
-          v[3] = pdx * dx;
-          v[4] = pdy * dy;
-          v[5] = pdx * dy;
-          v[6] = w * g0;
-          v[7] = w * g1;
-          v[8] = w * g2;
-          v[9] = w * g3;
-          log_t = log_t0;
-          suffix = suffix + w * cg;
+        for (int k = 0; k < NS; ++k) v[k] = 0.0f;
+        bool contrib = false;
+        if (j < my_walk) {
+          const float* d = s_inst + jj * NF;
+          const float dx = px - d[0];
+          const float dy = py - d[1];
+          const float power = -0.5f * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy;
+          const float alpha_u = d[5] * expf(power);
+          const float alpha = fminf(ALPHA_MAX, alpha_u);
+          if (!(power > 0.0f || alpha < ALPHA_MIN)) {
+            contrib = true;
+            const float l1m = log1pf(-alpha);
+            const float log_t0 = log_t - l1m;
+            const float t_excl = expf(log_t0);
+            const float w = alpha * t_excl;
+            const float cg = g0 * d[6] + g1 * d[7] + g2 * d[8] + g3 * d[9];
+            const float dalpha =
+                cg * t_excl - (suffix + g_logt) / fmaxf(1.0f - alpha, 1e-6f);
+            const float dpow = alpha_u <= ALPHA_MAX ? dalpha * alpha_u : 0.0f;
+            const float pdx = dpow * dx;
+            const float pdy = dpow * dy;
+            v[0] = dpow;
+            v[1] = pdx;
+            v[2] = pdy;
+            v[3] = pdx * dx;
+            v[4] = pdy * dy;
+            v[5] = pdx * dy;
+            v[6] = w * g0;
+            v[7] = w * g1;
+            v[8] = w * g2;
+            v[9] = w * g3;
+            log_t = log_t0;
+            suffix = suffix + w * cg;
+          }
         }
-      }
-      if (__any_sync(FULL, contrib)) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int k = 0; k < NS; ++k) v[k] += __shfl_down_sync(FULL, v[k], off);
+        float sum = 0.0f;  // this lane's whole sum, if it holds one
+        if (__any_sync(FULL, contrib)) {
+          float r5[5], r3[3], r2[2], r1[1];
+          halve<10>(v, r5, 16, lane & 16);
+          halve<5>(r5, r3, 8, lane & 8);
+          halve<3>(r3, r2, 4, lane & 4);
+          halve<2>(r2, r1, 2, lane & 2);
+          sum = r1[0] + __shfl_xor_sync(FULL, r1[0], 1);
         }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NS; ++k) s_part[warp][jj][k] = v[k];
+        if ((SUM_LANES >> lane) & 1u) {
+          const int k = 5 * ((lane >> 4) & 1) + 3 * ((lane >> 3) & 1) + 2 * ((lane >> 2) & 1) +
+                        ((lane >> 1) & 1);
+          s_part[warp][jj][k] = sum;
+        }
       }
     }
     __syncthreads();
 
-    if (p < nb) {
+    if (i < nb) {
+      // The warps that visited instance i: its mask bit, and i below their walk.
+      const unsigned m = s_mask[i];
       float s[NS];
 #pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        float acc = 0.0f;
+      for (int k = 0; k < NS; ++k) s[k] = 0.0f;
 #pragma unroll
-        for (int w = 0; w < NWARP; ++w) acc += s_part[w][p][k];
-        s[k] = acc;
+      for (int w = 0; w < NWARP; ++w) {
+        if (((m >> w) & 1u) && base + i < s_wmax[w]) {
+#pragma unroll
+          for (int k = 0; k < NS; ++k) s[k] += s_part[w][i][k];
+        }
       }
-      const float* d = s_inst + p * NF;
+      const float* d = s_inst + i * NF;
       const float op = d[5];
-      float* row = dinst + (start + base + p) * NF;
+      float* row = dinst + (start + base + i) * NF;
       row[0] = d[2] * s[1] + d[3] * s[2];  // d mean x
       row[1] = d[4] * s[2] + d[3] * s[1];  // d mean y
       row[2] = -0.5f * s[3];               // d conic a
@@ -169,7 +240,7 @@ composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start
 
   // Rows no pixel reached: behind every pixel's last blend or past the cap.
   float* rest = dinst + start * NF;
-  for (long long k = (long long)maxw * NF + p; k < (long long)count * NF; k += PIX) rest[k] = 0.0f;
+  for (long long k = (long long)maxw * NF + i; k < (long long)count * NF; k += PIX) rest[k] = 0.0f;
 }
 
 }  // namespace

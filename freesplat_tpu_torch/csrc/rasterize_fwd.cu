@@ -6,16 +6,25 @@
 // double-buffered DMA are TPU means and are gone.
 //
 // Design.  One thread block per 16x16 pixel tile, one thread per pixel
-// (256 threads).  The block walks its tile's instances, already sorted
-// front to back by depth, in batches of BATCH: all threads copy a batch
-// (BATCH x 10 floats, contiguous) into shared memory with coalesced loads,
-// then every thread blends the batch sequentially for its own pixel.
-// The block stops once every pixel has terminated (__syncthreads_count).
+// (256 threads); each warp owns an 8x4 pixel block (tile_cull.cuh).  The
+// block walks its tile's instances, already sorted front to back by depth,
+// in batches of BATCH: each thread copies one instance into shared memory
+// and computes its 8-bit warp mask (which warps' pixels it can reach).  Each
+// warp then visits only the instances whose bit it holds (a ballot over 32
+// at a time), in order, G at a time: first the part of each pair that does
+// not depend on the pixel's state (power, alpha, the cut, log1p(-alpha)),
+// then the carried part (log T, its exp, the termination test, the four
+// accumulations).  A warp whose pixels have all terminated stops visiting;
+// the block stops once every pixel has terminated (__syncthreads_count).
+// The cull skips only pairs the cut would reject, and every value comes
+// from the same expression in the same order as before, so the outputs
+// are bit-equal to the plain version (ops/rasterizer.py::
+// composite_tiles_plain) with or without it.
 //
 // Semantics, per pixel and instance, as the TPU kernel and the CUDA
 // rasterizer spec:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy, with integer pixel
-//           coordinates px = tx*16 + i%16, py = ty*16 + i/16 (no +0.5);
+//           coordinates px = tx*16 + col, py = ty*16 + row (no +0.5);
 //   alpha = min(0.99, opacity exp(power)), skipped when power > 0 or
 //           alpha < 1/255;
 //   a pixel terminates, sticky, at the first instance that would take
@@ -30,38 +39,54 @@
 // instances from walk - 1 down to 0 and recovers T before each one from
 // the final log T, so it never re-walks the forward.
 //
-// What bounds it on the H100: the instance reads.  Every tile pass reads
-// 40 B per instance from L2/DRAM (about 47 MB at the 384x512 slice shape,
-// ~1.2M instances) and writes 20 B per pixel; the arithmetic per
-// (pixel, instance) pair is two expf, one log1pf and ~20 flops.  Staging a
-// batch in shared memory makes each instance one coalesced read per block
-// instead of 256 reads, and the early exit skips the instances behind
-// opaque surfaces.
+// What bounds it on the H100: not bytes (40 B per instance read once per
+// tile, 24 B per pixel written) but the instructions issued per
+// (warp, instance) step (power, expf, the cut, log1pf and the blend for
+// 32 lanes at once) and each pixel's serial chain (log T -> expf -> the
+// termination test -> the next instance).  The cull removes the steps
+// whose pixels the instance cannot reach; grouping G instances lets the
+// independent expf and log1pf of a group overlap, leaving one add, one
+// expf and a compare on the carried chain per blended pair.  PERF.md has
+// the counts: the busiest warp's chain is not what bounds it.
 #include <cuda_runtime.h>
+
+#include "tile_cull.cuh"
 
 namespace {
 
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
 constexpr int NF = 10;            // mx my conic_a conic_b conic_c opacity r g b depth
-constexpr int BATCH = 256;        // instances staged per round
+constexpr int BATCH = PIX;        // instances staged per round, one per thread
+constexpr int G = 4;              // instances per group of the carried chain
 constexpr int MAX_INST = 16384;   // per-tile cap
 constexpr int OUT_CH = 5;         // r g b depth logT
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(PIX)
+// Six blocks an SM (at most 40 registers a thread): the 768 tiles of a
+// 384x512 view then fit in one wave (132 SMs x 6 = 792 slots), where the
+// compiler's own choice (48 registers left 5 blocks an SM and a second, partial
+// wave).
+__global__ void __launch_bounds__(PIX, 6)
 composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start,
               const int* __restrict__ tile_count, int tiles_x,
               float* __restrict__ out, int* __restrict__ walk) {
   __shared__ float s_inst[BATCH * NF];
+  __shared__ unsigned char s_mask[BATCH];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int p = tile_cull::pixel_of_thread(i);
   const long long start = tile_start[t];
   const int cnt = min(tile_count[t], MAX_INST);
-  const float px = (float)((t % tiles_x) * TILE + p % TILE);
-  const float py = (float)((t / tiles_x) * TILE + p / TILE);
+  const float x0 = (float)((t % tiles_x) * TILE);
+  const float y0 = (float)((t / tiles_x) * TILE);
+  const float px = x0 + (float)(p % TILE);
+  const float py = y0 + (float)(p / TILE);
 
   float log_t = 0.0f;  // log transmittance over blended instances
   float trans = 1.0f;  // expf(log_t)
@@ -73,31 +98,70 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
     // Also the barrier that keeps the previous batch alive until read.
     if (__syncthreads_count(!done) == 0) break;
     const int nb = min(BATCH, cnt - base);
-    const float* src = inst + (start + base) * NF;
-    for (int k = p; k < nb * NF; k += PIX) s_inst[k] = src[k];
-    __syncthreads();
-    if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float* d = s_inst + j * NF;
-      const float dx = px - d[0];
-      const float dy = py - d[1];
-      const float power = -0.5f * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy;
-      const float alpha = fminf(ALPHA_MAX, d[5] * expf(power));
-      if (power > 0.0f || alpha < ALPHA_MIN) continue;
-      const float log_t_next = log_t + log1pf(-alpha);
-      const float trans_next = expf(log_t_next);
-      if (trans_next < T_EPS) {
-        done = true;
-        break;
+    if (i < nb) {
+      // Rows are 40 B apart, so 8-byte aligned: five float2 loads.
+      const float2* src = reinterpret_cast<const float2*>(inst + (start + base + i) * NF);
+      float row[NF];
+#pragma unroll
+      for (int k = 0; k < NF / 2; ++k) {
+        const float2 v = src[k];
+        row[2 * k] = v.x;
+        row[2 * k + 1] = v.y;
       }
-      const float w = alpha * trans;
-      acc_r = acc_r + w * d[6];
-      acc_g = acc_g + w * d[7];
-      acc_b = acc_b + w * d[8];
-      acc_d = acc_d + w * d[9];
-      log_t = log_t_next;
-      trans = trans_next;
-      walked = base + j + 1;
+#pragma unroll
+      for (int k = 0; k < NF; ++k) s_inst[i * NF + k] = row[k];
+      s_mask[i] = (unsigned char)tile_cull::warp_mask(row, x0, y0);
+    }
+    __syncthreads();
+    if (__all_sync(FULL, done)) continue;
+
+    for (int c0 = 0; c0 < nb; c0 += 32) {
+      const int jl = c0 + lane;
+      unsigned bits = __ballot_sync(FULL, jl < nb && ((s_mask[min(jl, nb - 1)] >> warp) & 1u));
+      while (bits) {
+        int js[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          js[g] = bits ? c0 + __ffs(bits) - 1 : -1;
+          bits &= bits - 1u;
+        }
+        // The pixel-state-free part of each pair.
+        float al[G], lm[G];
+        bool pass[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float* d = s_inst + max(js[g], 0) * NF;
+          const float dx = px - d[0];
+          const float dy = py - d[1];
+          const float power = -0.5f * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy;
+          const float alpha = fminf(ALPHA_MAX, d[5] * expf(power));
+          pass[g] = js[g] >= 0 && !(power > 0.0f || alpha < ALPHA_MIN);
+          al[g] = alpha;
+          lm[g] = pass[g] ? log1pf(-alpha) : 0.0f;
+        }
+        // The carried part, in order.
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (done || !pass[g]) continue;
+          const float log_t_next = log_t + lm[g];
+          const float trans_next = expf(log_t_next);
+          if (trans_next < T_EPS) {
+            done = true;
+            continue;
+          }
+          const float* d = s_inst + js[g] * NF;
+          const float w = al[g] * trans;
+          acc_r = acc_r + w * d[6];
+          acc_g = acc_g + w * d[7];
+          acc_b = acc_b + w * d[8];
+          acc_d = acc_d + w * d[9];
+          log_t = log_t_next;
+          trans = trans_next;
+          walked = base + js[g] + 1;
+        }
+        if (__all_sync(FULL, done)) break;
+      }
+      if (__all_sync(FULL, done)) break;
     }
   }
 

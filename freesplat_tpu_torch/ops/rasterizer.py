@@ -35,6 +35,10 @@ CHUNK = 128  # capacity rounding granule (the JAX package's lane width)
 MAX_TILE_INSTANCES = 16384  # per-tile cap (JAX MAX_CHUNKS * CHUNK)
 CAPACITY_FLOOR = 32768
 OUT_CH = 5  # r g b depth logT
+NWARP = P // 32  # warps of a kernel block, one thread per pixel
+WARP_COLS, WARP_ROWS = 8, 4  # each warp's pixel block (csrc/tile_cull.cuh)
+_CULL_K_MAX = 262144.0  # 2^18: the cull's error bound needs 32 u K <= 0.5
+_CULL_COORD_MAX = 1e6  # px; beyond it the one-pixel margin may not cover rounding
 
 # Kernel launches by wrapper since the last reset (one per launch).
 launch_count = {"rasterize_fwd": 0, "rasterize_bwd": 0}
@@ -313,6 +317,142 @@ def composite_tiles_plain_bwd(
         log_t = torch.where(contrib, log_t0, log_t)
         suffix = torch.where(contrib, suffix + w * cg, suffix)
     return (dinst, int(walked), int(contributed)) if count_pairs else dinst
+
+
+def warp_pixels() -> torch.Tensor:
+    """(8, 32) int64: the tile pixel (row * 16 + col) of each warp's lanes in
+    both kernels; warp w owns the 8x4 block at column 8 (w % 2), row
+    4 (w // 2) (``csrc/tile_cull.cuh::pixel_of_thread``)."""
+    i = torch.arange(P)
+    w, lane = i // 32, i % 32
+    col = WARP_COLS * (w % 2) + lane % WARP_COLS
+    row = WARP_ROWS * (w // 2) + lane // WARP_COLS
+    return (row * TILE + col).reshape(NWARP, 32)
+
+
+def _row_tiles(tile_start: torch.Tensor, tile_count: torch.Tensor, k: int) -> torch.Tensor:
+    """(k,) tile of each instance row (rows are grouped by tile)."""
+    num_tiles = tile_start.shape[0]
+    return torch.repeat_interleave(torch.arange(num_tiles, device=tile_count.device),
+                                   tile_count.long(), output_size=k)
+
+
+def warp_cull_mask_plain(
+    inst: torch.Tensor,  # (k, 10) f32
+    tile_start: torch.Tensor,  # (num_tiles,) i32
+    tile_count: torch.Tensor,  # (num_tiles,) i32
+    tiles_x: int,
+) -> torch.Tensor:
+    """(k, 8) bool: may instance row r pass the cut at any pixel of warp w?
+
+    Plain version of ``csrc/tile_cull.cuh::warp_mask``, which both kernels
+    use to skip (warp, instance) pairs: the bounding box of the ellipse
+    q <= (2 ln(op / ALPHA_MIN) + 1e-4) / (1 - 32 u K), K = (a + c)^2 / det,
+    against the warp's 8x4 pixel block grown by one pixel.  Conservative:
+    every bit is set where the bounds behind it do not hold (a non-finite
+    field, a conic not positive definite, K > 2^18, a mean or an extent
+    beyond 1e6 px), none where op < ALPHA_MIN (the header has the proof)."""
+    tile = _row_tiles(tile_start, tile_count, inst.shape[0])
+    x0 = ((tile % tiles_x) * TILE).float()
+    y0 = ((tile // tiles_x) * TILE).float()
+    mx, my, a, b, c, op = inst[:, :6].unbind(1)
+    finite = torch.isfinite(inst[:, :6]).all(1)
+    det_d = a.double() * c.double() - b.double() * b.double()
+    det = det_d.float()
+    k = (a + c) * (a + c) / det
+    thr = (2.0 * torch.log(op / ALPHA_MIN) + 1e-4) / (1.0 - 32.0 * 2.0 ** -24 * k)
+    ex = torch.sqrt(thr * c / det) * (1.0 + 1e-5)
+    ey = torch.sqrt(thr * a / det) * (1.0 + 1e-5)
+    bounded = ((a > 0) & (c > 0) & (det_d > 0) & (k <= _CULL_K_MAX)
+               & (mx.abs() <= _CULL_COORD_MAX) & (my.abs() <= _CULL_COORD_MAX)
+               & (ex <= _CULL_COORD_MAX) & (ey <= _CULL_COORD_MAX))
+
+    def overlap(m, e, lo0, n, width):
+        lo = lo0[:, None] + width * torch.arange(n, device=inst.device) - 1.0
+        hi = lo + (width + 1)
+        return ((m - e)[:, None] <= hi) & ((m + e)[:, None] >= lo)
+
+    cols = overlap(mx, ex, x0, TILE // WARP_COLS, WARP_COLS)  # (k, 2)
+    rows = overlap(my, ey, y0, TILE // WARP_ROWS, WARP_ROWS)  # (k, 4)
+    w = torch.arange(NWARP, device=inst.device)
+    box = cols[:, w % 2] & rows[:, w // 2]
+    mask = torch.where(bounded[:, None], box, True)
+    mask = torch.where((op < ALPHA_MIN)[:, None], False, mask)
+    return torch.where(finite[:, None], mask, True)
+
+
+def warp_steps_plain(
+    inst: torch.Tensor,  # (k, 10) f32
+    tile_start: torch.Tensor,  # (num_tiles,) i32
+    tile_count: torch.Tensor,  # (num_tiles,) i32
+    tiles_x: int,
+    walk: torch.Tensor,  # (num_tiles, P) i32 forward residual
+) -> dict:
+    """The (warp, instance) steps each kernel makes on these inputs, with
+    and without the per-warp cull (``warp_cull_mask_plain``), counted by
+    instance (a warp's group of 4 in the forward may end past its last).
+
+    - ``fwd`` / ``fwd_cull``: a warp walks until its last pixel
+      terminates (at the first instance past ``walk`` that passes the cut)
+      or the tile's instances end;
+    - ``bwd_tile_start``: every warp walks from the tile's largest walk
+      (the backward before the per-warp start); ``bwd`` / ``bwd_cull``:
+      each warp from its own largest walk;
+    - ``bwd_reducing``: steps with a contributing lane, where a warp
+      reduces its ten sums (the cull skips none of them);
+    - ``fwd_cull_warp_max`` / ``bwd_cull_warp_max``: the most steps one
+      warp makes with the cull (its serial chain; the block's warps run
+      side by side).
+    Also the tile instance count and the per-tile largest walk, max and
+    mean."""
+    num_tiles = tile_start.shape[0]
+    dev = inst.device
+    px, py = _pixel_coords(num_tiles, tiles_x, dev)
+    cnt = torch.clamp(tile_count.long(), max=MAX_TILE_INSTANCES)
+    start = tile_start.long()
+    walk = walk.long()
+    end = cnt[:, None].expand(num_tiles, P).clone()  # one past the last step
+    found = torch.zeros(num_tiles, P, dtype=torch.bool, device=dev)
+    reducing = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = warp_pixels().to(dev)
+    for j in range(int(cnt.max()) if num_tiles else 0):
+        live = (j < cnt)[:, None]
+        d = inst[torch.where(j < cnt, start + j, 0)]
+        dx = px - d[:, 0:1]
+        dy = py - d[:, 1:2]
+        power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) - d[:, 3:4] * dx * dy
+        alpha = torch.clamp(d[:, 5:6] * torch.exp(power), max=ALPHA_MAX)
+        passed = live & ~((power > 0.0) | (alpha < ALPHA_MIN))
+        stop = passed & (j >= walk) & ~found
+        end = torch.where(stop, j + 1, end)
+        found = found | stop
+        reducing = reducing + (passed & (j < walk))[:, lanes].any(-1).sum()
+    fwd_end = end[:, lanes].amax(-1)  # (num_tiles, 8)
+    bwd_end = walk[:, lanes].amax(-1)
+    mask = warp_cull_mask_plain(inst, tile_start, tile_count, tiles_x).long()
+    csum = torch.cat([torch.zeros(1, NWARP, dtype=torch.long, device=dev), mask.cumsum(0)])
+
+    def culled(stop_at):  # set mask bits of each (tile, warp) below stop_at
+        return csum.gather(0, start[:, None] + stop_at) - csum[start]
+
+    fwd_cull, bwd_cull = culled(fwd_end), culled(bwd_end)
+
+    tile_walk = walk.amax(1) if num_tiles else walk.new_zeros(0)
+    return {
+        "tiles": num_tiles,
+        "tile_count_max": int(cnt.max()) if num_tiles else 0,
+        "tile_count_mean": float(cnt.float().mean()) if num_tiles else 0.0,
+        "tile_walk_max": int(tile_walk.max()) if num_tiles else 0,
+        "tile_walk_mean": float(tile_walk.float().mean()) if num_tiles else 0.0,
+        "fwd": int(fwd_end.sum()),
+        "fwd_cull": int(fwd_cull.sum()),
+        "fwd_cull_warp_max": int(fwd_cull.max()) if num_tiles else 0,
+        "bwd_tile_start": NWARP * int(tile_walk.sum()),
+        "bwd": int(bwd_end.sum()),
+        "bwd_cull": int(bwd_cull.sum()),
+        "bwd_cull_warp_max": int(bwd_cull.max()) if num_tiles else 0,
+        "bwd_reducing": int(reducing),
+    }
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, every ``csrc/*.cuh`` header and the flags, so
+an edited source or header rebuilds).
 No PyTorch headers are included: a build takes seconds, not minutes.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so every multiply
@@ -44,23 +45,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    out = library_path(name)
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<name>.cu`` unless an up-to-date library exists.
+    ``csrc`` other than the package's own (another tree's sources, to time
+    against) records its build under ``<dir name>/<name>``."""
+    out = library_path(name, csrc)
+    key = name if csrc == CSRC else f"{csrc.name}/{name}"
     if out.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached"})
+        BUILD_INFO.setdefault(key, {"seconds": 0.0, "log": "cached"})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -69,7 +75,7 @@ def build(name: str) -> Path:
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    BUILD_INFO[name] = {
+    BUILD_INFO[key] = {
         "seconds": time.perf_counter() - t0,
         "log": (proc.stdout + proc.stderr).strip(),
     }
