@@ -21,7 +21,8 @@
    cull (``ops/rasterizer.py::warp_steps_plain``).  With ``--baseline
    DIR`` the rasterizer kernels built from ``DIR/rasterize_{fwd,bwd}.cu``
    (another tree's sources) are also held against these there and timed
-   beside them in turns (baseline, this, this, baseline).
+   beside them in turns (baseline, this, this, baseline), and likewise
+   ``DIR/gather_rows.cu`` in phase 6.
 4. Serving: the ``scannet/2views`` preset (384x512, 2 context views,
    D = 128, fp32) with weights from a seed serves 3 numpy-made scenes of
    3 target views through ``run_test``.  The forward's launch count must
@@ -37,10 +38,11 @@
    and one profiled warm step; then both kernels are held against their
    plain versions on a target view of the trained Gaussians and timed.
 6. Row gather: ``gather_rows`` (``csrc/gather_rows.cu``) equals its plain
-   version exactly at the six probe shapes and on wrapped and
-   out-of-range indices (NaN); kernel, plain and ``torch.gather`` timed
-   at the largest shape (device time of back-to-back calls), with the
-   bytes bound.
+   version exactly, NaN in the same places, at the six probe shapes and
+   on wrapped and out-of-range indices at five shapes (lanes % 4 != 0,
+   16,384 rows, x at a 4 B offset into its buffer among them).  At the
+   largest shape: the device time of back-to-back calls of the kernel,
+   the plain version and ``torch.gather``, with the bytes bound.
 7. Probes: ``scripts/probe_r3.main(["all"])`` in-process; the gather and
    both compositing kernels must launch, the gather must equal
    ``np.take_along_axis`` at the six shapes, and the rasterizer probe's
@@ -615,12 +617,53 @@ def train_run():
     return launches, cmp[:2], timing
 
 
+def _gather_check(label, x, idx):
+    """The gather kernel vs its plain version on one input: equal, NaN in
+    the same places, the kernel launched once.  Returns the max abs
+    error."""
+    import torch
+    from freesplat_tpu_torch.scripts import probe_r3 as P
+
+    before = P.launch_count["gather_rows"]
+    k, p = P.gather_rows(x, idx), P.gather_rows_plain(x, idx)
+    sync()
+    nan = torch.isnan(p)
+    d = (k[~nan] - p[~nan]).abs().max().item() if bool((~nan).any()) else 0.0
+    if not (torch.equal(torch.isnan(k), nan) and d == 0.0):
+        raise AssertionError(f"gather_rows {label} vs plain: NaN places differ or max abs "
+                             f"error {d}")
+    if DEVICE == "cuda" and P.launch_count["gather_rows"] != before + 1:
+        raise AssertionError(f"gather_rows {label}: the kernel was not launched")
+    return d
+
+
+def _baseline_gather():
+    """``BASELINE/gather_rows.cu``'s kernel as a function of (x, idx),
+    bound with the C signature (x, idx, rows, lanes, out, stream)."""
+    import torch
+
+    fn = _baseline_fn("gather_rows")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.restype, fn.argtypes = i32, [ptr, ptr, i32, i32, ptr, ptr]
+
+    def gather(x, idx):
+        out = torch.empty_like(x)
+        rc = fn(x.data_ptr(), idx.data_ptr(), x.shape[0], x.shape[1], out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline gather_rows launch failed: cudaError {rc}")
+        return out
+
+    return gather
+
+
 def gather_phase():
-    """The gather kernel vs its plain version at the probe shapes (exactly:
-    a gather does no arithmetic) and on wrapped and out-of-range indices
-    (NaN in the same places); kernel, plain and ``torch.gather`` times and
-    the bound at the largest shape.  Returns (max abs error, (ms, plain
-    ms, library ms, bound ms, bound by))."""
+    """The gather kernel vs its plain version (exactly: a gather does no
+    arithmetic) at the probe shapes and on wrapped and out-of-range
+    indices; then the device time at the largest shape of the kernel, the
+    plain version and ``torch.gather``, with the bound (and with
+    ``BASELINE`` set, the baseline's kernel in turns).  Returns (max abs
+    error, (ms, plain ms, library ms, bound ms, bound by))."""
     import torch
     from freesplat_tpu_torch.scripts import probe_r3 as P
     from freesplat_tpu_torch.utils.timing import device_bench
@@ -629,21 +672,26 @@ def gather_phase():
     for rows, lanes in P.GATHER_SHAPES:
         x_np, idx_np = P.gather_inputs(rows, lanes)
         x, idx = torch.from_numpy(x_np).to(DEVICE), torch.from_numpy(idx_np).to(DEVICE)
-        d = (P.gather_rows(x, idx) - P.gather_rows_plain(x, idx)).abs().max().item()
-        if d != 0.0:
-            raise AssertionError(f"gather_rows ({rows},{lanes}) vs plain: max abs error {d}")
-        err = max(err, d)
+        err = max(err, _gather_check(f"({rows},{lanes})", x, idx))
     rng = np.random.default_rng(4)
-    rows, lanes = 640, 96
-    x = torch.from_numpy(rng.standard_normal((rows, lanes)).astype(np.float32)).to(DEVICE)
-    idx = torch.from_numpy(rng.integers(-2 * rows, 2 * rows, (rows, lanes)).astype(np.int32)).to(DEVICE)
-    k, p = P.gather_rows(x, idx), P.gather_rows_plain(x, idx)
-    nan = torch.isnan(p)
-    d = (k[~nan] - p[~nan]).abs().max().item()
-    if not (torch.equal(torch.isnan(k), nan) and d == 0.0 and nan.any()):
-        raise AssertionError(f"gather_rows vs plain on wrapped/out-of-range indices: NaN "
-                             f"places differ or max abs error {d}")
-    err = max(err, d)
+
+    def wrapped(rows, lanes, offset=0):
+        """x from the seed, at ``offset`` floats into its buffer; idx over
+        [-2 rows, 2 rows): in range, wrapped and out of range."""
+        buf = torch.from_numpy(rng.standard_normal(rows * lanes + offset).astype(np.float32))
+        x = buf.to(DEVICE)[offset:].view(rows, lanes)
+        idx = rng.integers(-2 * rows, 2 * rows, (rows, lanes)).astype(np.int32)
+        return x, torch.from_numpy(idx).to(DEVICE)
+
+    cases = (("(640,96)", wrapped(640, 96)),
+             ("(12416,192)", wrapped(12416, 192)),
+             ("lanes % 4 != 0 (12416,190)", wrapped(12416, 190)),
+             ("16,384 rows (16384,128)", wrapped(16384, 128)),
+             ("x at a 4 B offset (12416,192)", wrapped(12416, 192, offset=1)))
+    for label, (x, idx) in cases:
+        err = max(err, _gather_check(f"wrap/out of range {label}", x, idx))
+    log(f"[gather] {len(P.GATHER_SHAPES)} probe shapes and {len(cases)} wrap/NaN cases "
+        f"({'; '.join(c[0] for c in cases)}) equal the plain version (max abs error {err})")
 
     rows, lanes = P.GATHER_SHAPES[-1]
     x_np, idx_np = P.gather_inputs(rows, lanes)
@@ -651,19 +699,23 @@ def gather_phase():
     idx64 = idx.long()  # torch.gather's index type, made outside the timed call
     fns = {"kernel": (P.gather_rows, idx), "plain": (P.gather_rows_plain, idx),
            "torch.gather": (lambda a, i: torch.gather(a, 0, i), idx64)}
-    # Device time of back-to-back calls (the table stays in L2 between
-    # calls, as in the probe's loop), and beside it the CUDA-event time of
-    # a loop of calls launched from Python, which host overhead holds up.
+    # Device time of back-to-back calls of one (x, idx): the 28.6 MB of
+    # table, index and output stay in the 50 MB L2 between calls, as in the
+    # probe's loop.
     dev = {k: device_bench(f, [(x, i)], n=50) * 1e3 for k, (f, i) in fns.items()}
-    evt = {k: cuda_ms(lambda f=f, i=i: f(x, i), reps=50) for k, (f, i) in fns.items()}
     el = rows * lanes
     bound = _bound(el * GATHER_BYTES_PER_ELEM, el * GATHER_OPS_PER_ELEM)
-    log(f"[gather] {len(P.GATHER_SHAPES)} probe shapes and the wrap/NaN case equal the "
-        f"plain version (max abs error {err}). ({rows},{lanes}) device ms per call: "
+    log(f"[gather] ({rows},{lanes}) device ms per call: "
         + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
-        + "; CUDA-event ms per call of a Python loop: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in evt.items())
         + f"; bound {bound[0]:.4f} ms ({bound[1]}; {el * GATHER_BYTES_PER_ELEM} B)")
+    if BASELINE is not None:
+        base = _baseline_gather()
+        if not torch.equal(base(x, idx), P.gather_rows(x, idx)):
+            raise AssertionError("baseline gather_rows differs from this tree's")
+        turns = [device_bench(base if b else P.gather_rows, [(x, idx)], n=50) * 1e3
+                 for b in (True, False, False, True)]
+        log(f"[time]   gather_rows ({rows},{lanes}) baseline vs this tree, device ms in turns "
+            f"(baseline, this, this, baseline): {', '.join(f'{t:.4f}' for t in turns)}")
     return err, (dev["kernel"], dev["plain"], dev["torch.gather"], *bound)
 
 
@@ -878,8 +930,9 @@ def main(argv=None) -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on an NVIDIA GPU.")
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="a directory holding another tree's rasterize_{fwd,bwd}.cu, "
-                         "held against this tree's kernels and timed beside them")
+                    help="a directory holding another tree's rasterize_{fwd,bwd}.cu and "
+                         "gather_rows.cu, held against this tree's kernels and timed "
+                         "beside them")
     BASELINE = ap.parse_args(argv).baseline
     import torch
 

@@ -17,12 +17,20 @@
 // the ``o`` writes of a warp are 128 contiguous bytes each; the ``x`` reads
 // land on 32 random rows, one 32 B sector each for 4 useful bytes.
 //
-// What bounds it on the H100: bytes.  Each element reads one index and one
-// value and writes one value, 12 B, about 1.5 operations; the bound is the
-// 12 B at 3.35 TB/s (8.5 us at 12416 x 192).  The random ``x`` sectors come
-// from L2, not from device memory, after the first touch; staging column
-// slabs of ``x`` in shared memory would cut that traffic and is left for
-// later.
+// What bounds it on the H100.  Each element reads one index and one value
+// and writes one value, 12 B, about 1.5 operations, so the roofline bound is
+// the 12 B at 3.35 TB/s (8.5 us at 12416 x 192).  The time is set instead by
+// L1-to-L2 requests: each random ``x`` read is a request of its own (one
+// 32 B sector for 4 useful bytes), about 1.06 requests an element with the
+// coalesced ``idx`` and ``o``, and an SM completes about 0.9 G requests/s.
+//
+// Column slabs of ``x`` staged in shared memory (4 lanes, 16 B a row, the
+// blocks of a slab in one cluster sharing its load, by ld.global.nc or by
+// TMA multicast) were built and timed against this kernel and lost at every
+// large probe shape: the slab, ``idx`` and ``o`` then move in 16 B pieces of
+// rows 768 B apart, and each piece costs a request as a random sector does.
+// A slab pays only where it is read many times, as in a fused plane sweep
+// that reads one slab for each of its D depth planes.
 #include <cuda_runtime.h>
 
 namespace {
