@@ -25,10 +25,15 @@
    ``DIR/gather_rows.cu`` in phase 6.
 4. Serving: the ``scannet/2views`` preset (384x512, 2 context views,
    D = 128, fp32) with weights from a seed serves 3 numpy-made scenes of
-   3 target views through ``run_test``.  The forward's launch count must
-   equal the views rendered, the backward's stay 0; outputs finite;
-   nothing dropped.  One rendered view is held against the plain
-   compositor, and one warm scene is profiled.
+   3 target views through ``run_test`` with the preset's defaults: PSNR,
+   SSIM, LPIPS (weights from seed 111124), rendered depth against sensor
+   depth with holes, frame and depth-colormap dumps and the stats files
+   in a temporary directory; the second scene has an extrapolation
+   target.  The forward's launch count must equal the views rendered, the
+   backward's stay 0; summary finite, SSIM <= 1, the FVS split and depth
+   keys present, the files written, nothing dropped.  Prints each scene's
+   encode / render / metrics / dumps time.  One rendered view is held
+   against the plain compositor, and one warm scene is profiled.
 5. Training: ``+experiment=scannet/2views mode=train
    decoder.capacity_factor=8.0`` (8 target views, MSE + 0.05 LPIPS with
    LPIPS weights from a seed) runs ``fit`` for 5 steps.  Each kernel must
@@ -37,6 +42,14 @@
    ms per step and its forward / backward / optimizer split, peak memory
    and one profiled warm step; then both kernels are held against their
    plain versions on a target view of the trained Gaussians and timed.
+   Then 2 depth-supervised steps (all four ``loss.depth.*`` terms at 0.1,
+   targets with sensor depth): every depth part finite and non-zero, 8
+   launches of each kernel a step, and the backward kernel held against
+   its plain version on the step's own cotangent (depth channel
+   non-zero).  Then Replica through the CLI: ``main`` with
+   ``+experiment=replica/2views mode=test`` on a 640x480 scene written in
+   the dataset's layout (suffixed index key, 1 extrapolation target),
+   checked as serving is.
 6. Row gather: ``gather_rows`` (``csrc/gather_rows.cu``) equals its plain
    version exactly, NaN in the same places, at the six probe shapes and
    on wrapped and out-of-range indices at five shapes (lanes % 4 != 0,
@@ -102,6 +115,10 @@ TRAIN_TARGET_VIEWS = 8  # the ScanNet train sampler's num_target_views
 # the address take 4 integer operations.
 GATHER_BYTES_PER_ELEM, GATHER_OPS_PER_ELEM = 12, 4
 CLI_STEPS = 4
+DEPTH_STEPS = 2  # depth-supervised fit steps
+DEPTH_WEIGHTS = ("ms_gradient_weight", "scale_invariant_weight", "normals_weight",
+                 "mv_consistency_weight")
+LPIPS_SEED = 111124  # the training LPIPS's seed (cfg.seed + 1): no pretrained weights ship
 ROOT = Path(__file__).resolve().parent
 BASELINE: Path | None = None  # --baseline: another tree's csrc to time against
 
@@ -197,9 +214,21 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
                              f"{int((k_walk != p_walk).sum())} pixels")
     rng = np.random.default_rng(seed)
     cot = torch.from_numpy(rng.standard_normal(tuple(k.shape)).astype(np.float32)).to(k.device)
+    bwd_err, scaled, walked, contributed = check_bwd(args, k, k_walk, cot)
+    return max(rgb, depth, log_t), bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
+
+
+def check_bwd(args, out, walk, cot):
+    """The backward kernel vs its plain version on one input: every dinst
+    column within TOL_GRAD after scaling by the column's largest
+    magnitude, every value finite.  Returns (max abs error, scaled error,
+    walked pairs, contributing pairs)."""
+    import torch
+    from freesplat_tpu_torch.ops import rasterizer as R
+
     with torch.no_grad():
-        dk = R.composite_tiles_bwd(*args, k, k_walk, cot)
-        dp, walked, contributed = R.composite_tiles_plain_bwd(*args, p, p_walk, cot,
+        dk = R.composite_tiles_bwd(*args, out, walk, cot)
+        dp, walked, contributed = R.composite_tiles_plain_bwd(*args, out, walk, cot,
                                                               count_pairs=True)
     sync()
     bwd_err, scaled = 0.0, 0.0
@@ -209,7 +238,7 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
         bwd_err = diff.max().item()
     if not (scaled <= TOL_GRAD and bool(torch.isfinite(dk).all())):
         raise AssertionError(f"backward kernel vs plain: scaled error {scaled}, abs {bwd_err}")
-    return max(rgb, depth, log_t), bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
+    return bwd_err, scaled, walked, contributed
 
 
 def kernel_cases() -> tuple[float, float]:
@@ -397,9 +426,22 @@ def bench_scene():
     return cmp[:2], time_kernels(inst, binning, W // 16, cmp, "bench scene")
 
 
-def make_scene(seed: int, v_ctx=2, v_tgt=3):
+def sensor_depth(rng, n, h=None, w=None, holes=0.05):
+    """(n, h, w) smooth depth maps in metres (1.5 to 4.5; default H x W)
+    with ``holes`` of the pixels 0, as a depth sensor leaves them."""
+    h, w = h or H, w or W
+    coarse = rng.uniform(1.5, 4.5, size=(n, h // 32 + 1, w // 32 + 1))
+    depth = np.repeat(np.repeat(coarse, 32, axis=1), 32, axis=2)[:, :h, :w]
+    depth = depth + 0.01 * rng.standard_normal(depth.shape)
+    depth[rng.uniform(size=depth.shape) < holes] = 0.0
+    return depth.astype(np.float32)
+
+
+def make_scene(seed: int, v_ctx=2, v_tgt=3, depth=False, test_fvs=0):
     """Numpy views at 384x512: smooth random images, cameras on a short
-    arc with the targets between the two context cameras."""
+    arc with the targets between the two context cameras; with ``depth``
+    the targets carry sensor depth (``sensor_depth``), with ``test_fvs``
+    the last that many targets are extrapolation views."""
     rng = np.random.default_rng(seed)
     n = v_ctx + v_tgt
     extr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
@@ -422,7 +464,12 @@ def make_scene(seed: int, v_ctx=2, v_tgt=3):
             "far": np.full((1, len(idx)), 15.0, np.float32),
         }
 
-    return {"scene": [f"numpy_scene_{seed}"], "context": views(ctx), "target": views(tgt)}
+    target = views(tgt)
+    if depth:
+        target["depth"] = sensor_depth(rng, len(tgt))[None]
+    if test_fvs:
+        target["test_fvs"] = test_fvs
+    return {"scene": [f"numpy_scene_{seed}"], "context": views(ctx), "target": target}
 
 
 def view_inputs(encoder, capacity_factor, scene, view=0):
@@ -471,45 +518,89 @@ def reset_launch_counts():
             d[k] = 0
 
 
+def check_test_outputs(out: Path, summary: dict, launches: dict, views: int, label: str):
+    """What ``run_test`` must leave after a run: finite summary values
+    with SSIM <= 1, the FVS split and the depth metrics, the stats files
+    and each scene's frame folders, and the forward kernel launched once
+    per target view, no other kernel."""
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
+                                         "gather_rows": 0}:
+        raise AssertionError(f"{label} launches {launches} for {views} target views")
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"{label}: non-finite summary {summary}")
+    ssim = {k: v for k, v in summary.items() if k == "ssim" or k.endswith("_ssim")}
+    if not ssim or max(ssim.values()) > 1.0:
+        raise AssertionError(f"{label}: SSIM missing or above 1: {ssim}")
+    want = {f"{p}_{m}" for p in ("interpolation", "extrapolation") for m in ("psnr", "ssim", "lpips")}
+    want |= {f"depth_{m}" for m in ("abs_diff", "abs_rel", "delta_25", "delta_10")}
+    if not want <= set(summary):
+        raise AssertionError(f"{label}: summary lacks {sorted(want - set(summary))}")
+    if summary["dropped_instances"] != 0:
+        raise AssertionError(f"{label}: rasterizer dropped instances: {summary}")
+    stats = json.loads((out / "stats.json").read_text())
+    files = {f: (out / f).exists() for f in ("benchmark.json", "peak_memory.json")}
+    memory = json.loads((out / "peak_memory.json").read_text())
+    if not all(files.values()) or (DEVICE == "cuda" and "device_0" not in memory):
+        raise AssertionError(f"{label}: stats files {files}, peak memory {list(memory)}")
+    for entry in stats["per_scene"]:
+        d = out / entry["scene"]
+        got = {p.name for p in d.iterdir()}
+        color = ({"interpolation", "extrapolation"} if "extrapolation_psnr" in entry
+                 else {"color"})
+        if got != color | {"context", "depth_pred", "depth_render"}:
+            raise AssertionError(f"{label}: {entry['scene']} dumped {sorted(got)}")
+        pngs = sum(len(list((d / c).glob("*.png"))) for c in color)
+        if pngs != 2 * entry["num_views"]:
+            raise AssertionError(f"{label}: {entry['scene']} has {pngs} frame PNGs")
+
+
 def slice_run():
-    """Serving: run_test over 3 scenes, then kernels vs plain on one of its
-    views, then one profiled warm scene."""
+    """Serving: run_test over 3 scenes with the preset's defaults (PSNR,
+    SSIM, LPIPS, rendered-depth metrics, frame and depth dumps, the stats
+    files), the second scene an FVS one; then kernels vs plain on one of
+    its views, then one profiled warm scene."""
     import torch
     from freesplat_tpu_torch.config.config import load_config
     from freesplat_tpu_torch.evaluation.harness import run_test
     from freesplat_tpu_torch.models.decoder import render_views
     from freesplat_tpu_torch.models.encoder import make_encoder
-    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.training.lpips import make_lpips
 
-    # Seeded random weights make splats larger than trained ones (~3.6 tile
-    # instances per Gaussian where the preset's budget allows 3.0), so the
-    # test-time budget is raised: the port's binning costs what the
-    # instances need, not the budget, so the headroom is free.
-    cfg = load_config(["+experiment=scannet/2views", "mode=test", "test.save_depth=false",
-                       "test.render_capacity_factor=8.0"])
-    scenes = [make_scene(s) for s in (1, 2, 3)]
+    scenes = [make_scene(1, depth=True), make_scene(2, depth=True, test_fvs=1),
+              make_scene(3, depth=True)]
     views = sum(s["target"]["image"].shape[1] for s in scenes)
+    lpips = make_lpips(device=DEVICE, seed=LPIPS_SEED)  # no pretrained weights ship
     timings: dict = {}
-    if DEVICE == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    summary = run_test(cfg, batches=iter(scenes), device=DEVICE, timings=timings)
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
-    if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
-                                         "gather_rows": 0}:
-        raise AssertionError(f"serving launches {launches} for {views} target views")
-    if not all(math.isfinite(v) for v in summary.values()):
-        raise AssertionError(f"non-finite summary {summary}")
-    if summary["dropped_instances"] != 0:
-        raise AssertionError(f"rasterizer dropped instances: {summary}")
-    enc_ms = [1e3 * t for t in timings["encoder_s"]]
-    dec_ms = [1e3 * t for t in timings["decoder_s_per_view"]]
-    log(f"[slice] scenes 3, target views {views}, wall {wall:.2f} s, "
-        f"encoder ms/scene {enc_ms}, decoder ms/view {dec_ms}, "
-        f"gaussians/scene {summary['num_gaussians']:.0f}, psnr {summary['psnr']:.3f}, "
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        # Seeded random weights make splats larger than trained ones (~3.6
+        # tile instances per Gaussian where the preset's budget allows
+        # 3.0), so the test-time budget is raised: the port's binning costs
+        # what the instances need, not the budget, so the headroom is free.
+        cfg = load_config(["+experiment=scannet/2views", "mode=test", f"test.output_path={out}",
+                           "test.render_capacity_factor=8.0"])
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = run_test(cfg, batches=iter(scenes), lpips=lpips, device=DEVICE,
+                           timings=timings)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        check_test_outputs(out, summary, launches, views, "serving")
+    if not ("ssim" in summary and "lpips" in summary):
+        raise AssertionError(f"serving summary lacks the plain scenes' metrics: {sorted(summary)}")
+    split = {k: [round(1e3 * t, 2) for t in timings[k]]
+             for k in ("encoder_s", "metrics_s", "dumps_s")}
+    split["render_s"] = [round(1e3 * t * v, 2) for t, v in
+                         zip(timings["decoder_s_per_view"],
+                             (s["target"]["image"].shape[1] for s in scenes))]
+    log(f"[slice] scenes 3 (the second with test_fvs 1), target views {views}, wall {wall:.2f} s, "
+        f"per-scene ms: encode {split['encoder_s']}, render {split['render_s']}, metrics "
+        f"{split['metrics_s']}, dumps {split['dumps_s']}; gaussians/scene "
+        f"{summary['num_gaussians']:.0f}, psnr {summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, "
+        f"lpips {summary['lpips']:.4f}, depth_abs_rel {summary['depth_abs_rel']:.4f}, "
         f"peak memory {peak} B, launches {launches}")
 
     # One view of scene 1 through the same encoder weights: kernels vs
@@ -549,7 +640,7 @@ def train_run():
     tcfg = TrainCfg(encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss,
                     optimizer=cfg.optimizer, log_every=1)
     state = init_state(tcfg, seed=cfg.seed, device=DEVICE)
-    lpips = make_lpips(device=DEVICE, seed=cfg.seed + 1)  # no pretrained weights ship
+    lpips = make_lpips(device=DEVICE, seed=LPIPS_SEED)
     scenes = [make_scene(10 + i, v_tgt=TRAIN_TARGET_VIEWS) for i in range(TRAIN_STEPS + 1)]
     encoder = state["encoder"]
     params0 = {k: p.detach().clone() for k, p in encoder.named_parameters()}
@@ -615,6 +706,169 @@ def train_run():
         profile_window(one_step, f"one warm train step ({TRAIN_TARGET_VIEWS} target views)")
         R.launch_count.update(saved)
     return launches, cmp[:2], timing
+
+
+def lpips_npz() -> Path:
+    """The LPIPS weights of ``LPIPS_SEED`` as a flax-layout .npz under
+    ``build/``, for the CLI's ``loss.lpips.weights_path``."""
+    from freesplat_tpu_torch.training.lpips import make_lpips, save_lpips_params
+    from freesplat_tpu_torch.utils.flax_bridge import torch_to_jax_variables
+
+    path = ROOT / "build" / f"lpips_seed{LPIPS_SEED}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_lpips_params(torch_to_jax_variables(make_lpips(device=DEVICE, seed=LPIPS_SEED)),
+                      str(path))
+    return path
+
+
+def train_depth_run():
+    """Depth-supervised training: ``fit`` for DEPTH_STEPS full-width steps
+    with all four ``loss.depth.*`` terms on (targets with sensor depth and
+    holes, 2 context views so the multi-view term runs).  Every depth part
+    must be finite and non-zero and each kernel launch 8 times a step.
+    The first backward launch of the run is recorded and its own
+    cotangent, whose depth channel the depth losses make non-zero, is
+    given again to the kernel and to the plain backward."""
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.training.lpips import make_lpips
+    from freesplat_tpu_torch.training.trainer import TrainCfg, fit, init_state
+
+    cfg = load_config(["+experiment=scannet/2views", "mode=train", "decoder.capacity_factor=8.0",
+                       *(f"loss.depth.{k}=0.1" for k in DEPTH_WEIGHTS)])
+    tcfg = TrainCfg(encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss,
+                    optimizer=cfg.optimizer, log_every=1)
+    state = init_state(tcfg, seed=cfg.seed, device=DEVICE)
+    lpips = make_lpips(device=DEVICE, seed=LPIPS_SEED)
+    scenes = [make_scene(20 + i, v_tgt=TRAIN_TARGET_VIEWS, depth=True)
+              for i in range(DEPTH_STEPS)]
+    recorded: list = []
+    own_bwd = R.composite_tiles_bwd
+
+    def recording_bwd(*args):
+        if not recorded:
+            recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return own_bwd(*args)
+
+    logged: list = []
+    timings: dict = {}
+    reset_launch_counts()
+    R.composite_tiles_bwd = recording_bwd
+    try:
+        t0 = time.perf_counter()
+        fit(tcfg, state, iter(scenes), DEPTH_STEPS, lpips=lpips,
+            log_fn=lambda step, vals: logged.append((step, vals)), timings=timings)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        R.composite_tiles_bwd = own_bwd
+    launches = launch_counts()
+    want = TRAIN_TARGET_VIEWS * DEPTH_STEPS
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
+                                         "gather_rows": 0}:
+        raise AssertionError(f"depth-supervised launches {launches}, want {want} of each kernel")
+    parts = [f"loss_depth_{k}" for k in ("grad", "si", "normals", "mv")]
+    if [s for s, _ in logged] != list(range(DEPTH_STEPS)):
+        raise AssertionError(f"fit logged steps {[s for s, _ in logged]}")
+    for step, vals in logged:
+        bad = [k for k in parts if not (math.isfinite(vals.get(k, math.nan)) and vals[k] != 0)]
+        if bad or not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"depth step {step}: parts {bad} missing, zero or non-finite: "
+                                 f"{vals}")
+        if vals["dropped_instances"] != 0:
+            raise AssertionError(f"depth step {step}: rasterizer dropped instances: {vals}")
+        log(f"[depth] step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+    step_ms = [1e3 * sum(x) for x in zip(timings["forward_s"], timings["backward_s"],
+                                         timings["optimizer_s"])]
+    log(f"[depth] {DEPTH_STEPS} steps of {TRAIN_TARGET_VIEWS} target views, all four depth "
+        f"terms at 0.1, wall {wall:.2f} s; ms per step {[round(t, 2) for t in step_ms]} "
+        f"(forward {[round(1e3 * t, 2) for t in timings['forward_s']]}, backward "
+        f"{[round(1e3 * t, 2) for t in timings['backward_s']]}); launches {launches}")
+
+    inst, tile_start, tile_count, tiles_x, out, walk, cot = recorded[0]
+    depth_cot = cot[..., 3].abs().max().item()
+    if not depth_cot > 0:
+        raise AssertionError("the depth-supervised step gave the backward a zero depth cotangent")
+    saved = dict(R.launch_count)
+    bwd_err, scaled, walked, contributed = check_bwd((inst, tile_start, tile_count, tiles_x),
+                                                     out, walk, cot)
+    R.launch_count.update(saved)  # a comparison launch, not the main path's
+    log(f"[depth] the step's first backward launch, its own cotangent (depth channel max |g| "
+        f"{depth_cot:.3g}, color {cot[..., :3].abs().max().item():.3g}): kernel vs plain max "
+        f"abs error {bwd_err:.3g} (scaled {scaled:.3g}), {walked} pairs walked, "
+        f"{contributed} contributing")
+    return launches, bwd_err, step_ms
+
+
+def write_replica_scene(root: Path, n=16, seed=7) -> Path:
+    """A Replica-layout scene at the dataset's native 640x480: JPEG color,
+    uint16 millimetre depth PNGs with holes, color and depth intrinsics,
+    c2w extrinsics on a short arc; the test index lists the suffixed key
+    ``room0_1`` and the evaluation index takes 2 context views, 3
+    interpolation and 1 extrapolation target.  Returns the index path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    scene = root / "test" / "room0"
+    for sub in ("color", "depth", "intrinsic"):
+        (scene / sub).mkdir(parents=True)
+    coarse = rng.uniform(size=(n, 30, 40, 3))
+    color = np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2)
+    color = np.clip(color + 0.05 * rng.standard_normal(color.shape), 0, 1)
+    depth_mm = (1000 * sensor_depth(rng, n, 480, 640)).astype(np.uint16)
+    for i in range(n):
+        Image.fromarray((255 * color[i]).astype(np.uint8), "RGB").save(scene / "color" / f"{i}.jpg")
+        Image.fromarray(depth_mm[i]).save(scene / "depth" / f"{i}.png")
+    k = np.array([[320.0, 0, 319.5, 0], [0, 320, 239.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    np.savetxt(scene / "intrinsic" / "intrinsic_color.txt", k)
+    np.savetxt(scene / "intrinsic" / "intrinsic_depth.txt", k)
+    extr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i, t in enumerate(np.linspace(0.0, 1.0, n)):
+        a = 0.15 * t
+        extr[i, :3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+        extr[i, :3, 3] = [0.5 * t, 0.0, 0.05 * t]
+    np.save(scene / "extrinsics.npy", extr)
+    (root / "test_idx.txt").write_text("room0_1\n")
+    index = root / "evaluation_index_replica.json"
+    index.write_text(json.dumps(
+        {"room0_1": {"context": [0, 10], "target": [3, 5, 8], "extrapolation": [13]}}))
+    return index
+
+
+def replica_run():
+    """Replica through the CLI: ``main`` with ``+experiment=replica/2views
+    mode=test`` (384x512, the preset's defaults, LPIPS weights from
+    ``LPIPS_SEED``) on a scene written in the dataset's layout.  The
+    stats, dumps and launches are checked as in serving."""
+    from freesplat_tpu_torch import main as M
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        index = write_replica_scene(tmp / "replica")
+        out = tmp / "out"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        M.main(["+experiment=replica/2views", "mode=test", f"dataset.roots=[{tmp / 'replica'}]",
+                f"dataset.evaluation_index_path={index}", f"test.output_path={out}",
+                f"dataset.image_shape=[{H},{W}]", "test.render_capacity_factor=8.0",
+                f"loss.lpips.weights_path={lpips_npz()}"],
+               device=DEVICE)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        stats = json.loads((out / "stats.json").read_text())
+        summary = stats["summary"]
+        check_test_outputs(out, summary, launches, 4, "replica")
+        (entry,) = stats["per_scene"]
+        if (entry["scene"], entry["num_views"]) != ("room0_1", 4):
+            raise AssertionError(f"replica scene {entry['scene']} with {entry['num_views']} views")
+    log(f"[replica] room0_1 (read from room0/) through main: 4 target views (1 extrapolation), "
+        f"wall {wall:.2f} s, interpolation psnr {summary['interpolation_psnr']:.3f} ssim "
+        f"{summary['interpolation_ssim']:.4f}, extrapolation psnr "
+        f"{summary['extrapolation_psnr']:.3f}, depth_abs_rel {summary['depth_abs_rel']:.4f}, "
+        f"launches {launches}")
+    return launches
 
 
 def _gather_check(label, x, idx):
@@ -761,13 +1015,8 @@ def cli_run():
     from freesplat_tpu_torch import main as M
     from freesplat_tpu_torch.training import checkpoint as C
     from freesplat_tpu_torch.training import validation as V
-    from freesplat_tpu_torch.training.lpips import make_lpips, save_lpips_params
-    from freesplat_tpu_torch.utils.flax_bridge import torch_to_jax_variables
 
-    lpips_path = ROOT / "build" / "lpips_seed111124.npz"  # no pretrained weights ship
-    lpips_path.parent.mkdir(parents=True, exist_ok=True)
-    save_lpips_params(torch_to_jax_variables(make_lpips(device=DEVICE, seed=111124)),
-                      str(lpips_path))
+    lpips_path = lpips_npz()
     by_path = {"cli_data": {}, "cli_train": {}, "cli_val": {}}
     draws, vals, restored = [0], [0], []
 
@@ -961,6 +1210,9 @@ def main(argv=None) -> int:
     errs.append(serve_err)
     train_launches, train_err, timing = train_run()
     errs.append(train_err)
+    depth_launches, depth_bwd_err, _ = train_depth_run()
+    errs.append((0.0, depth_bwd_err))
+    replica_launches = replica_run()
     gather_err, gather_t = gather_phase()
     probe_launches, probe = probe_run()
     cli_launches, _ = cli_run()
@@ -968,8 +1220,8 @@ def main(argv=None) -> int:
         log(f"[bench] {k} at the bench scene: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
 
-    paths = {"serve": serve_launches, "train": train_launches, "probe": probe_launches,
-             **cli_launches}
+    paths = {"serve": serve_launches, "train": train_launches, "train_depth": depth_launches,
+             "replica": replica_launches, "probe": probe_launches, **cli_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]

@@ -8,8 +8,8 @@ Port of ``freesplat_tpu/main.py``, with the same override surface:
 
 With no dataset on disk, ``dataset.name=synthetic`` trains on the built-in
 synthetic Gaussian scenes.  Runs on the GPU unless ``main`` is asked for
-the CPU (``device="cpu"``).  Not ported yet: the ``replica`` and ``re10k``
-datasets and more than one device (``trainer.devices``).
+the CPU (``device="cpu"``).  Not ported yet: the ``re10k`` dataset and
+more than one device (``trainer.devices``).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from .config.config import RootCfg, load_config
 from .data.data_module import DataLoaderStageCfg, DataModule
+from .data.replica import DatasetReplica
 from .data.scannet import DatasetScannet, DatasetScannetCfg
 from .data.synthetic import SyntheticCfg, synthetic_batches
 from .data.view_samplers import (
@@ -51,13 +52,16 @@ def make_view_sampler(cfg: RootCfg, stage: str):
 
 
 def make_data_module(cfg: RootCfg, step_fn=None) -> DataModule:
-    """Stage-aware loaders for ``dataset.name`` scannet (the reference's
-    ``data_module.py`` + DATASETS registry)."""
-    if cfg.dataset.name in ("replica", "re10k"):
+    """Stage-aware loaders for ``dataset.name`` scannet or replica (the
+    reference's ``data_module.py`` + DATASETS registry): both read the
+    directory-per-scene layout, Replica with its test-suffix strip and
+    depth intrinsics (``data/replica.py``)."""
+    if cfg.dataset.name == "re10k":
         raise NotImplementedError(f"dataset.name={cfg.dataset.name} is not ported yet")
+    cls = DatasetReplica if cfg.dataset.name == "replica" else DatasetScannet
 
     def factory(stage: str):
-        return DatasetScannet(
+        return cls(
             DatasetScannetCfg(
                 roots=tuple(cfg.dataset.roots),
                 image_shape=cfg.dataset.image_shape,
@@ -213,8 +217,7 @@ def _load_lpips(cfg: RootCfg, device: str | torch.device = "cuda"):
 def test(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
     from .evaluation.harness import run_test
 
-    lpips = _load_lpips(cfg, device)
-    run_test(cfg, lpips_params=lpips, device=device)
+    run_test(cfg, lpips=_load_lpips(cfg, device), device=device)
 
 
 def main(argv: list[str] | None = None, device: str | torch.device = "cuda") -> None:

@@ -52,11 +52,13 @@ def pose_distance_matrix(extrinsics: torch.Tensor) -> torch.Tensor:
 
 
 def select_source_views(extrinsics: torch.Tensor, num_src: int) -> torch.Tensor:
-    """(v, v) pose distances -> (v, num_src) nearest other-view indices."""
+    """(v, v) pose distances -> (v, num_src) nearest other-view indices,
+    the lower index first among equal distances (as ``jax.lax.top_k``
+    orders ties; ``torch.topk`` makes no promise there)."""
     v = extrinsics.shape[0]
     dist = pose_distance_matrix(extrinsics)
     dist = dist + torch.eye(v, device=extrinsics.device) * 1e9  # exclude self
-    return torch.topk(-dist, num_src, dim=-1, sorted=True).indices
+    return torch.sort(dist, dim=-1, stable=True).indices[:, :num_src]
 
 
 def sweep_geometry(extr, intr, num_views: int, match_hw: tuple[int, int]):

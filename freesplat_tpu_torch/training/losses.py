@@ -1,18 +1,26 @@
-"""Training losses: MSE + LPIPS.
+"""Training losses: MSE + LPIPS + the auxiliary depth losses.
 
 Port of ``freesplat_tpu/training/losses.py``: each loss is a function of
 (prediction, target, step) plus the LPIPS module, and ``total_loss``
-composes them per config into the same ``parts`` dict.  The auxiliary
-depth losses are not ported yet: every preset leaves their weights at 0,
-and a non-zero weight raises.
+composes them per config into the same ``parts`` dict.  The depth terms
+(``training/depth_losses.py``) supervise the rendered target depth with
+the sensor depth, and the encoder's context depths with each other; every
+preset leaves their weights at 0.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from ..config.config import LossCfg, LossDepthCfg, LossLpipsCfg, LossMseCfg
+from .depth_losses import (
+    depth_to_normals,
+    ms_gradient_loss,
+    mv_depth_loss,
+    normals_loss,
+    scale_invariant_loss,
+)
 
 __all__ = [
     "LossCfg", "LossDepthCfg", "LossLpipsCfg", "LossMseCfg",
@@ -41,19 +49,57 @@ def lpips_loss(
     return cfg.weight * lpips(flat_p, flat_t).mean()
 
 
-def depth_supervision(cfg: LossDepthCfg, **depth_ctx: Any) -> dict[str, torch.Tensor]:
-    """The auxiliary depth losses: not ported yet, so any non-zero weight
-    raises (every preset sets all four to 0)."""
-    weights = {
-        "ms_gradient_weight": cfg.ms_gradient_weight,
-        "scale_invariant_weight": cfg.scale_invariant_weight,
-        "normals_weight": cfg.normals_weight,
-        "mv_consistency_weight": cfg.mv_consistency_weight,
-    }
-    asked = [k for k, w in weights.items() if w]
-    if asked:
-        raise NotImplementedError(f"depth losses are not ported yet: loss.depth.{asked}")
-    return {}
+def depth_supervision(
+    cfg: LossDepthCfg,
+    rendered_depth: torch.Tensor,  # (b, v, h, w) rendered target depth
+    gt_depth: Optional[torch.Tensor],  # (b, v, h, w) sensor depth (m), 0 = invalid
+    intrinsics: torch.Tensor,  # (b, v, 3, 3) normalized target intrinsics
+    enc_depth: Optional[torch.Tensor] = None,  # (b, vc, h, w) context pred depth
+    ctx_extrinsics: Optional[torch.Tensor] = None,  # (b, vc, 4, 4) c2w
+    ctx_intrinsics: Optional[torch.Tensor] = None,  # (b, vc, 3, 3) normalized
+) -> dict[str, torch.Tensor]:
+    """Weighted auxiliary depth-loss terms; a term whose weight is 0 is not
+    computed at all."""
+    parts: dict[str, torch.Tensor] = {}
+    if gt_depth is not None and (
+        cfg.ms_gradient_weight or cfg.scale_invariant_weight or cfg.normals_weight
+    ):
+        b, v, h, w = rendered_depth.shape
+        pred = rendered_depth.reshape(b * v, h, w)
+        gt = gt_depth.reshape(b * v, h, w)
+        valid = gt > 0
+        # Invalid sensor pixels (0) -> NaN for the losses that mask
+        # non-finite values (the reference feeds depth with NaN holes).
+        gt_nan = torch.where(valid, gt, torch.full_like(gt, float("nan")))
+        if cfg.ms_gradient_weight:
+            parts["depth_grad"] = cfg.ms_gradient_weight * ms_gradient_loss(gt_nan, pred)
+        if cfg.scale_invariant_weight:
+            eps = torch.full_like(pred, 1e-6)
+            log_gt = torch.log(torch.maximum(gt, eps))
+            log_pr = torch.log(torch.maximum(pred, eps))
+            parts["depth_si"] = cfg.scale_invariant_weight * scale_invariant_loss(
+                log_gt, log_pr, mask=valid)
+        if cfg.normals_weight:
+            # One shared pixel-unit K (all views of a scene share
+            # intrinsics in every dataset here).
+            px = torch.tensor([w, h, 1.0], dtype=torch.float32, device=pred.device)
+            k_px = intrinsics.reshape(-1, 3, 3)[0] * px[:, None]
+            parts["depth_normals"] = cfg.normals_weight * normals_loss(
+                depth_to_normals(gt_nan, k_px), depth_to_normals(pred, k_px))
+    if cfg.mv_consistency_weight and enc_depth is not None:
+        # Consecutive context-view pairs (the reference iterates the
+        # cost-volume source views; consecutive pairs are the static-shape
+        # equivalent for the sequential ScanNet trajectories).
+        b, vc, h, w = enc_depth.shape
+        if vc >= 2:
+            px = torch.tensor([w, h, 1.0], dtype=torch.float32, device=enc_depth.device)
+            k_px = ctx_intrinsics[0, 0] * px[:, None]
+            parts["depth_mv"] = cfg.mv_consistency_weight * mv_depth_loss(
+                enc_depth[:, :-1].reshape(-1, h, w), enc_depth[:, 1:].reshape(-1, h, w),
+                ctx_extrinsics[:, :-1].reshape(-1, 4, 4), ctx_extrinsics[:, 1:].reshape(-1, 4, 4),
+                k_px,
+            )
+    return parts
 
 
 def total_loss(

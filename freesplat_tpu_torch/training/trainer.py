@@ -21,7 +21,7 @@ import torch
 
 from ..models.decoder import DecoderCfg, render_views
 from ..models.encoder import EncoderFreeSplatCfg, make_encoder
-from .losses import LossCfg, depth_supervision, total_loss
+from .losses import LossCfg, total_loss
 from .metrics import compute_psnr
 from .schedule import OptimizerCfg, clip_grad_global_norm, make_optimizer, make_schedule
 
@@ -49,8 +49,12 @@ def init_state(cfg: TrainCfg, seed: int, device: str | torch.device = "cuda") ->
     }
 
 
-def _on_device(views: Mapping[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(views[k]).to(device, torch.float32) for k in _VIEW_KEYS}
+def _on_device(views: Mapping[str, Any], device: torch.device,
+               depth: bool = False) -> dict[str, torch.Tensor]:
+    """The view tensors on ``device``, with the sensor ``depth`` (when the
+    batch has it) if ``depth``."""
+    keys = (*_VIEW_KEYS, "depth") if depth else _VIEW_KEYS
+    return {k: torch.as_tensor(views[k]).to(device, torch.float32) for k in keys if k in views}
 
 
 def _sync(device: torch.device) -> None:
@@ -71,8 +75,11 @@ def make_train_step(
     step "forward_s", "backward_s" and "optimizer_s" (host clock around
     synchronized device work; the syncs cost the step its overlap)."""
     schedule = make_schedule(cfg.optimizer)
-    if cfg.loss.depth is not None:
-        depth_supervision(cfg.loss.depth)  # raises on a non-zero weight: not ported yet
+    dc = cfg.loss.depth
+    depth_on = dc is not None and bool(
+        dc.ms_gradient_weight or dc.scale_invariant_weight or dc.normals_weight
+        or dc.mv_consistency_weight
+    )
 
     def train_step(state: dict, batch: Mapping[str, Any],
                    timings: dict[str, list[float]] | None = None) -> tuple[dict, dict]:
@@ -80,7 +87,7 @@ def make_train_step(
         params = list(encoder.parameters())
         device = params[0].device
         context = _on_device(batch["context"], device)
-        target = _on_device(batch["target"], device)
+        target = _on_device(batch["target"], device, depth=depth_on)
         h, w = target["image"].shape[2:4]
 
         if timings is not None:
@@ -91,7 +98,18 @@ def make_train_step(
             cfg.decoder, results["gaussians"], target["extrinsics"],
             target["intrinsics"], target["near"], target["far"], (h, w),
         )
-        loss, parts = total_loss(cfg.loss, output.color, target["image"], step, lpips)
+        depth_ctx = None
+        if depth_on:
+            depth_ctx = {
+                "rendered_depth": output.depth,
+                "gt_depth": target.get("depth"),
+                "intrinsics": target["intrinsics"],
+                "enc_depth": results.get("depth_s-1"),
+                "ctx_extrinsics": context["extrinsics"],
+                "ctx_intrinsics": context["intrinsics"],
+            }
+        loss, parts = total_loss(cfg.loss, output.color, target["image"], step, lpips,
+                                 depth_ctx=depth_ctx)
         if timings is not None:
             _sync(device)
         t1 = time.perf_counter()

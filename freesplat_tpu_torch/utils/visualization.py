@@ -1,10 +1,12 @@
-"""Visualization utilities: image layout and labels.
+"""Visualization utilities: image layout, labels and depth colormaps.
 
-What validation uses of ``freesplat_tpu/utils/visualization.py``, copied
-(numpy and PIL only).  Parity targets: ``src/visualization/layout.py``
-(hcat/vcat) and ``annotation.py`` (add_label).  Images are (h, w, 3)
-float32 in [0, 1].  The colormaps, drawing and video helpers are not
-ported yet.
+What validation and the test harness use of
+``freesplat_tpu/utils/visualization.py``, copied (numpy and PIL only; the
+colormap tables are copied into ``utils/colormaps.py``, so no matplotlib).
+Parity targets: ``src/visualization/layout.py`` (hcat/vcat),
+``annotation.py`` (add_label) and ``color_map.py`` (apply_color_map).
+Images are (h, w, 3) float32 in [0, 1].  The drawing and video helpers
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,3 +70,37 @@ def add_label(image: np.ndarray, label: str, font_size: int = 14) -> np.ndarray:
     draw.text((4, 4), label, fill=(0, 0, 0), font=font)
     bar_arr = np.asarray(bar).astype(np.float32) / 255.0
     return np.concatenate([bar_arr, image], axis=0)
+
+
+def apply_color_map(values: np.ndarray, cmap: str = "viridis") -> np.ndarray:
+    """Scalar field in [0, 1] -> (..., 3) RGB float32 (color_map.py's
+    apply_color_map), indexed as matplotlib's ``Colormap.__call__`` indexes
+    floats: values clipped to [0, 1], row ``floor(x * 256)`` with 1.0 on
+    the last row, NaN black."""
+    from .colormaps import TABLES
+
+    table = np.asarray(TABLES[cmap], np.float64)
+    n = table.shape[0]
+    x = np.clip(np.asarray(values, np.float32), 0.0, 1.0) * np.float32(n)
+    bad = np.isnan(x)
+    x[x == n] = n - 1
+    idx = np.where(bad, 0, x).astype(np.int64)
+    rgb = table[idx]
+    rgb[bad] = 0.0
+    return rgb.astype(np.float32)
+
+
+def depth_to_color(
+    depth: np.ndarray, near: float | None = None, far: float | None = None,
+    cmap: str = "turbo",
+) -> np.ndarray:
+    """Depth colormap visualization (model_wrapper.py convert_array_to_pil).
+
+    Normalizes by (near, far) or the finite positive value range, inverted
+    so close is bright."""
+    depth = np.asarray(depth, np.float32)
+    finite = depth[np.isfinite(depth) & (depth > 0)]
+    lo = near if near is not None else (finite.min() if finite.size else 0.0)
+    hi = far if far is not None else (finite.max() if finite.size else 1.0)
+    norm = np.clip((depth - lo) / max(hi - lo, 1e-8), 0.0, 1.0)
+    return apply_color_map(1.0 - norm, cmap)

@@ -3,10 +3,12 @@
 Validation is held against JAX's on the same (bridged) weights; the
 checkpoint is held to a round trip, a partial restore and a resumed run
 that equals the uninterrupted one; ``main`` trains, checkpoints, validates
-and resumes through the CLI.  The data it reads is checked in
+and resumes through the CLI, and evaluates a Replica-layout scene.  The data it reads is checked in
 ``tests/test_torch_data.py``.  Tolerances are stated beside each check.
 The JAX CLI itself is not run (its test is marked slow).
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,10 +220,57 @@ def test_train_cli_checkpoints_validates_and_resumes(tmp_path, monkeypatch, caps
     assert "train step 3: loss=" in text and "train step 2:" not in text
 
 
+def write_replica_scene(root, n=12, seed=3):
+    """A Replica-layout scene (the fixture of tests/test_data.py::
+    test_replica_loader_fvs_fixture): ``test/office0`` with 48x64 color,
+    24x32 depth (the depth camera has its own size and calibration), a
+    test index that lists the suffixed key ``office0_1``, and an
+    evaluation index with two extrapolation targets.  Returns the index
+    path."""
+    rng = np.random.default_rng(seed)
+    scene = root / "test" / "office0"
+    for sub in ("color", "depth", "intrinsic"):
+        (scene / sub).mkdir(parents=True)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (48, 64, 3), dtype=np.uint8), "RGB").save(
+            scene / "color" / f"{i}.jpg")
+        Image.fromarray(rng.integers(500, 5000, (24, 32), dtype=np.int32), "I").save(
+            scene / "depth" / f"{i}.png")
+    np.savetxt(scene / "intrinsic" / "intrinsic_color.txt",
+               np.array([[80.0, 0, 32, 0], [0, 80, 24, 0], [0, 0, 1, 0], [0, 0, 0, 1]]))
+    np.savetxt(scene / "intrinsic" / "intrinsic_depth.txt",
+               np.array([[40.0, 0, 16, 0], [0, 40, 12, 0], [0, 0, 1, 0], [0, 0, 0, 1]]))
+    extr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    extr[:, 0, 3] = np.linspace(0, 1, n)
+    np.save(scene / "extrinsics.npy", extr)
+    (root / "test_idx.txt").write_text("office0_1\n")
+    index = root / "evaluation_index_replica.json"
+    index.write_text(json.dumps(
+        {"office0_1": {"context": [0, 6], "target": [2, 4], "extrapolation": [9, 11]}}))
+    return index
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """More than one device and ``re10k`` raise; ``replica`` is ported:
+    ``main`` evaluates a Replica scene with the preset's defaults and
+    writes the FVS-split stats and frames."""
     with pytest.raises(NotImplementedError, match="multi-device"):
         tmain.main([*SMALL, "trainer.devices=2"], device="cpu")
-    for name in ("replica", "re10k"):
-        cfg = load_config([f"dataset.name={name}"])
-        with pytest.raises(NotImplementedError, match=name):
-            tmain.make_batches(cfg, "train", device="cpu")
+    cfg = load_config(["dataset.name=re10k"])
+    with pytest.raises(NotImplementedError, match="re10k"):
+        tmain.make_batches(cfg, "train", device="cpu")
+
+    index = write_replica_scene(tmp_path / "replica")
+    out = tmp_path / "out"
+    tmain.main(["+experiment=replica/2views", f"dataset.roots=[{tmp_path / 'replica'}]",
+                f"dataset.evaluation_index_path={index}", f"test.output_path={out}",
+                *[a for a in SMALL if not a.startswith(("dataset.name", "trainer."))]],
+               device="cpu")
+    stats = json.loads((out / "stats.json").read_text())
+    (scene,) = stats["per_scene"]
+    assert scene["scene"] == "office0_1" and scene["num_views"] == 4
+    for k in ("interpolation_psnr", "extrapolation_ssim", "depth_abs_rel"):
+        assert np.isfinite(scene[k]), k
+    assert {p.name for p in (out / "office0_1").iterdir()} == {
+        "interpolation", "extrapolation", "context", "depth_pred", "depth_render"}
+    assert (out / "office0_1" / "extrapolation" / "0003_gt.png").exists()

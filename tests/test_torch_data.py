@@ -1,9 +1,9 @@
 """The data the training CLI reads, PyTorch port vs JAX package, on the CPU.
 
 The synthetic stream (both renderers) and the ScanNet loader with its
-data module are held against their JAX counterparts on the same seeds and
-fixture; ``run_test`` without ``batches`` reads the configured dataset
-and ``checkpointing.load``.  Tolerances are stated beside each check.
+data module and the Replica loader are held against their JAX
+counterparts on the same seeds and fixtures; ``run_test`` without
+``batches`` reads the configured dataset and ``checkpointing.load``.  Tolerances are stated beside each check.
 """
 import dataclasses
 
@@ -13,18 +13,25 @@ import torch
 from PIL import Image
 
 from freesplat_tpu.data import data_module as jdm
+from freesplat_tpu.data import replica as jre
 from freesplat_tpu.data import scannet as jsc
 from freesplat_tpu.data import synthetic as jsyn
 from freesplat_tpu.data import view_samplers as jvs
 from freesplat_tpu_torch.config.config import load_config
+from freesplat_tpu_torch import main as tmain
 from freesplat_tpu_torch.data import data_module as tdm
+from freesplat_tpu_torch.data import replica as tre
 from freesplat_tpu_torch.data import scannet as tsc
 from freesplat_tpu_torch.data import synthetic as tsyn
 from freesplat_tpu_torch.data import view_samplers as tvs
 from freesplat_tpu_torch.evaluation.harness import run_test
 from freesplat_tpu_torch.training import checkpoint as ckpt
 from freesplat_tpu_torch.training.trainer import TrainCfg, init_state
-from tests.test_torch_cli import SMALL, _one_torch_thread  # noqa: F401  (autouse fixture)
+from tests.test_torch_cli import (  # noqa: F401  (autouse fixture)
+    SMALL,
+    _one_torch_thread,
+    write_replica_scene,
+)
 
 VIEW_KEYS = ("image", "depth", "extrinsics", "intrinsics", "near", "far", "index")
 
@@ -130,6 +137,53 @@ def test_scannet_loader_matches_jax(tmp_path, monkeypatch):
 
 
 
+def test_replica_loader_matches_jax(tmp_path, monkeypatch):
+    """``DatasetReplica`` of both packages on a Replica-layout scene: the
+    suffixed index key ``office0_1`` read from ``office0``, the
+    extrapolation targets last with ``test_fvs``, ``depth_intrinsics``
+    normalized by the depth image's own size; every array equal.  Then
+    the port's CLI routing (``make_batches`` with ``dataset.name=replica``)
+    gives the same batch."""
+    import freesplat_tpu.native
+
+    monkeypatch.setattr(freesplat_tpu.native, "available", lambda: False)
+    index = write_replica_scene(tmp_path)
+    kw = dict(roots=(str(tmp_path),), image_shape=(32, 48), load_size=(48, 64))
+
+    def sampler(vs):
+        return vs.ViewSamplerEvaluation(vs.ViewSamplerEvaluationCfg(index_path=str(index)))
+
+    jds = jre.DatasetReplica(jsc.DatasetScannetCfg(**kw), "test", sampler(jvs))
+    tds = tre.DatasetReplica(tsc.DatasetScannetCfg(**kw), "test", sampler(tvs))
+    assert len(tds) == len(jds) == 1
+    je, te = jds[0], tds[0]
+    assert te["scene"] == je["scene"] == "office0_1"
+    assert te["target"]["test_fvs"] == je["target"]["test_fvs"] == 2
+    for part in ("context", "target"):
+        assert set(te[part]) == set(je[part])
+        assert "depth_intrinsics" in te[part]
+        for k in je[part]:  # numpy and PIL on both sides: equal arrays
+            np.testing.assert_array_equal(np.asarray(te[part][k]), np.asarray(je[part][k]),
+                                          err_msg=f"{part} {k}")
+    np.testing.assert_array_equal(te["target"]["index"], [2, 4, 9, 11])
+    np.testing.assert_allclose(te["context"]["depth_intrinsics"][0, :2, :],
+                               [[40 / 32, 0, 16 / 32], [0, 40 / 24, 12 / 24]], rtol=1e-6)
+
+    cfg = load_config(["+experiment=replica/2views", f"dataset.roots=[{tmp_path}]",
+                       f"dataset.evaluation_index_path={index}"])
+    assert isinstance(tmain.make_data_module(cfg).dataset_factory("test"), tre.DatasetReplica)
+    batch = next(tmain.make_batches(cfg, "test", device="cpu"))
+    jbatch = jsc.collate([jre.DatasetReplica(
+        jsc.DatasetScannetCfg(roots=(str(tmp_path),), image_shape=(384, 512)), "test",
+        sampler(jvs))[0]])
+    assert batch["scene"] == jbatch["scene"]
+    for part in ("context", "target"):
+        assert set(batch[part]) == set(jbatch[part])
+        for k in jbatch[part]:
+            np.testing.assert_array_equal(np.asarray(batch[part][k]), np.asarray(jbatch[part][k]),
+                                          err_msg=f"CLI {part} {k}")
+
+
 # ---------------------------------------------------------------------------
 # The test harness.
 
@@ -138,7 +192,8 @@ def test_run_test_reads_the_configured_dataset(tmp_path):
     """Without ``batches`` run_test reads the dataset through
     ``main.make_batches``: 4 scenes of the infinite synthetic stream; with
     ``checkpointing.load`` and no ``state`` it evaluates the checkpoint."""
-    cfg = load_config([*SMALL, "mode=test", "test.save_depth=false", "test.eval_depth=false"])
+    cfg = load_config([*SMALL, "mode=test", "test.save_depth=false", "test.eval_depth=false",
+                       f"test.output_path={tmp_path / 'out'}"])
     timings = {}
     summary = run_test(cfg, device="cpu", timings=timings)
     assert len(timings["encoder_s"]) == 4
@@ -152,6 +207,12 @@ def test_run_test_reads_the_configured_dataset(tmp_path):
     # Seed 5, not cfg.seed: equal only if the checkpoint was read.
     assert from_ckpt == run_test(cfg, state=state["encoder"].state_dict(), device="cpu",
                                  max_scenes=1)
-    with pytest.raises(NotImplementedError, match="depth metrics"):
-        run_test(dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, eval_depth=True)),
-                 device="cpu")
+    # The synthetic targets carry depth: with eval_depth the rendered
+    # depth is scored against it.
+    assert not any(k.startswith("depth_") for k in summary)
+    with_depth = run_test(
+        dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, eval_depth=True)),
+        device="cpu", max_scenes=1)
+    assert {"depth_abs_diff", "depth_abs_rel", "depth_delta_25", "depth_delta_10"} <= set(
+        with_depth)
+    assert all(np.isfinite(v) for v in with_depth.values())

@@ -336,3 +336,21 @@ def test_source_view_selection_matches():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(_n(tenc.select_source_views(_t(extr), 3)),
                                   np.asarray(jenc.select_source_views(jnp.asarray(extr), 3)))
+
+
+def test_source_view_selection_breaks_ties_like_top_k():
+    """A ring of 8 cameras a unit apart around a 2x2 square, all facing
+    the same way: every view has tied neighbours (distances 1, sqrt 2, 2,
+    sqrt 5, exact in float32 on both sides), and the 5 nearest must come
+    out in ``jax.lax.top_k``'s order, the lower index first on a tie."""
+    ring = [(0, 0), (1, 0), (2, 0), (2, 1), (2, 2), (1, 2), (0, 2), (0, 1)]
+    extr = np.tile(np.eye(4, dtype=np.float32), (len(ring), 1, 1))
+    extr[:, :2, 3] = np.asarray(ring, np.float32)
+    tdist = _n(tenc.pose_distance_matrix(_t(extr)))
+    np.testing.assert_array_equal(tdist, np.asarray(jenc.pose_distance_matrix(jnp.asarray(extr))))
+    ties = [len(row) - len(np.unique(row)) for row in tdist]
+    assert min(ties) >= 2  # every row has tied distances
+    want = np.asarray(jenc.select_source_views(jnp.asarray(extr), 5))
+    np.testing.assert_array_equal(_n(tenc.select_source_views(_t(extr), 5)), want)
+    # The first view's neighbours: 1 and 7 at 1, 2 and 6 at 2, then 3 at sqrt 5.
+    np.testing.assert_array_equal(want[0], [1, 7, 2, 6, 3])

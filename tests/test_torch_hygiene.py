@@ -1,5 +1,6 @@
-"""Hygiene of the PyTorch port: no JAX inside it, GPU-default entry points
-that refuse to fall back to the CPU, and a strict weight bridge."""
+"""Hygiene of the PyTorch port: no JAX (nor matplotlib) inside it,
+GPU-default entry points that refuse to fall back to the CPU, and a strict
+weight bridge."""
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +15,7 @@ from freesplat_tpu_torch.models.decoder import DecoderCfg, make_decoder
 from freesplat_tpu_torch.models.encoder import EncoderFreeSplatCfg, make_encoder
 from freesplat_tpu_torch.models.layers import BasicBlock
 from freesplat_tpu_torch.utils.flax_bridge import load_flax_variables
+from tests.test_torch_cli import _one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -25,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "freesplat_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "freesplat_tpu",
+                                    "matplotlib"))
 print(len(names), bad)
 """
 
@@ -83,10 +86,18 @@ def test_cli_probe_and_data_entry_points_default_to_cuda(monkeypatch):
                        torch.ones(4, 8))
 
 
-def test_run_test_refuses_unported_options():
-    cfg = load_config(["+experiment=scannet/2views"])  # save_depth defaults on
-    with pytest.raises(NotImplementedError, match="save_depth"):
-        run_test(cfg, batches=iter([]), device="cpu")
+def test_run_test_refuses_unported_options(tmp_path):
+    """PLY and video export, ``view_shard`` and ``encode_view_chunk`` are
+    not ported and raise; the preset's defaults (``save_depth``,
+    ``eval_depth``) run and write the stats files."""
+    base = ["+experiment=scannet/2views", f"test.output_path={tmp_path}"]
+    for option in ("test.save_ply=true", "test.save_video=true", "test.view_shard=true",
+                   "test.encode_view_chunk=4"):
+        with pytest.raises(NotImplementedError, match=option.split("=")[0]):
+            run_test(load_config([*base, option]), batches=iter([]), device="cpu")
+    assert run_test(load_config(base), batches=iter([]), device="cpu") == {}
+    assert {p.name for p in tmp_path.iterdir()} == {"benchmark.json", "peak_memory.json",
+                                                    "stats.json"}
 
 
 def _block_variables(seed=0):

@@ -106,15 +106,24 @@ def test_slice_matches_jax():
     np.testing.assert_allclose(_n(tr.depth), np.asarray(jr.depth), rtol=2e-3, atol=1e-4)
 
 
-def test_run_test_on_numpy_scenes():
+def test_run_test_on_numpy_scenes(tmp_path):
     cfg = load_config([
         "+experiment=scannet/2views", f"encoder.num_depth_candidates={D}",
         "test.save_depth=false", "dataset.image_shape=64,64",
+        f"test.output_path={tmp_path}",
     ])
     timings = {}
-    summary = run_test(cfg, batches=iter([make_scene(1), make_scene(2)]),
-                       device="cpu", timings=timings)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # many small ops: see tests/test_torch_cli.py::_one_torch_thread
+    try:
+        summary = run_test(cfg, batches=iter([make_scene(1), make_scene(2)]),
+                           device="cpu", timings=timings)
+    finally:
+        torch.set_num_threads(threads)
     assert np.isfinite(summary["psnr"]) and summary["psnr"] > 0
     assert summary["dropped_instances"] == 0
     assert summary["num_gaussians"] > 0
     assert len(timings["encoder_s"]) == 2
+    assert 0 < summary["ssim"] <= 1
+    assert (tmp_path / "stats.json").exists() and (tmp_path / "scene1" / "color").is_dir()
+    assert not (tmp_path / "scene1" / "depth_pred").exists()  # save_depth off

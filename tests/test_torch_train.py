@@ -136,14 +136,41 @@ def test_lpips_params_npz_round_trip(tmp_path):
 
 
 def test_depth_losses_raise_until_ported():
+    """The depth losses are ported: a non-zero weight yields its part (its
+    value against JAX is ``tests/test_torch_depth_losses.py``), in
+    ``total_loss`` and in a train step that reads the target's sensor
+    depth; zero weights build none."""
     cfg = tlo.LossCfg(depth=tlo.LossDepthCfg(normals_weight=0.1))
-    x = torch.zeros(1, 1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="normals_weight"):
-        tlo.total_loss(cfg, x, x, 0, depth_ctx={"rendered_depth": x[..., 0]})
-    _, parts = tlo.total_loss(tlo.LossCfg(), x, x, 0, depth_ctx={})
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(size=(1, 1, 8, 8, 3)).astype(np.float32))
+    depth = 1.0 + x[..., 0]
+    intr = torch.tensor([[[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]]])
+    ctx = {"rendered_depth": depth, "gt_depth": depth.flip(-1), "intrinsics": intr}
+    total, parts = tlo.total_loss(cfg, x, x, 0, depth_ctx=ctx)
+    assert set(parts) == {"mse", "depth_normals"}
+    assert float(parts["depth_normals"]) > 0 and float(total) == float(parts["depth_normals"])
+    _, parts = tlo.total_loss(tlo.LossCfg(), x, x, 0, depth_ctx=ctx)
     assert set(parts) == {"mse"}  # zero weights: no depth term, no LPIPS module
-    with pytest.raises(NotImplementedError, match="normals_weight"):
-        ttr.make_train_step(ttr.TrainCfg(loss=cfg))
+
+    tcfg = ttr.TrainCfg(
+        encoder=tenc.EncoderFreeSplatCfg(num_depth_candidates=D, d_feature=16, matching_dim=8,
+                                         adapter=TAdapterCfg(sh_degree=1), train_bn=False),
+        decoder=dataclasses.replace(ttr.DecoderCfg(), sh_degree=1),
+        loss=tlo.LossCfg(lpips=None, depth=tlo.LossDepthCfg(scale_invariant_weight=0.1,
+                                                            mv_consistency_weight=0.1)),
+    )
+    batch = make_scene(3, h=32, w=32)
+    batch["target"]["depth"] = rng.uniform(1.0, 3.0, (1, 2, 32, 32)).astype(np.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a CPU train step of many small ops (see test_torch_cli)
+    try:
+        state = ttr.init_state(tcfg, seed=0, device="cpu")
+        _, metrics = ttr.make_train_step(tcfg)(state, batch)
+    finally:
+        torch.set_num_threads(threads)
+    for k in ("loss_depth_si", "loss_depth_mv"):
+        assert np.isfinite(float(metrics[k])) and float(metrics[k]) > 0, k
+    assert "loss_depth_grad" not in metrics and "loss_depth_normals" not in metrics
 
 
 # ---------------------------------------------------------------------------
