@@ -68,7 +68,31 @@
    kernel a train step, validation renders); then a second ``main``
    resumes from the checkpoint, whose restored tensors must equal the
    saved ones.
-9. Prints the kernel table as one JSON line, the card line, and last
+9. Whole scene (``scripts/whole_scene_bench.py``'s config through
+   ``run_test``): 2 synthetic scenes of 30 context and 4 target views at
+   384x512, D = 128, nearest-5 sources, 15 views a trunk chunk, render
+   capacity factor 1.0, in float32 and then in bfloat16
+   (``encoder.compute_dtype``): per scene the phase split (A match,
+   geometry, B trunk per chunk, C1 PTF, C2 head), render ms a view,
+   num_gaussians, gs_ratio, dropped and the peak memory; one forward
+   launch a target view; bfloat16's warm encode beside float32's.  The
+   witness: the first scene encoded again on the card and, with the same
+   weights, on the host CPU, in both dtypes; ``depth_s-1`` held within
+   WITNESS_LIMITS (card against host, bfloat16 against float32).  The forward kernel
+   bit-equal to plain on a whole-scene view, with its time, bound and
+   tile counts.
+10. ``main +experiment=scannet/fvt mode=test`` on a ScanNet-layout scene
+   of the 10-view evaluation index (10 context views, 5 a chunk), checked
+   as serving is; 2 ``fit`` steps of the ``scannet/fvt`` preset on
+   8-context synthetic scenes with every kernel's launches checked.
+11. Determinism: two seeded ``fit`` runs of 3 steps give bit-equal
+   losses and parameters, and ``fit`` leaves cuDNN's flags as it found
+   them; warm steps in four arms in turns, the gathers' backward
+   (``ops/gather.py::take_rows`` or ``index_select``) crossed with cuDNN
+   free or deterministic; the
+   ``segment_sum`` kernel bit-equal to its plain version on one step's
+   launches, timed beside it and ``index_add_``.
+12. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -116,9 +140,24 @@ TRAIN_TARGET_VIEWS = 8  # the ScanNet train sampler's num_target_views
 GATHER_BYTES_PER_ELEM, GATHER_OPS_PER_ELEM = 12, 4
 CLI_STEPS = 4
 DEPTH_STEPS = 2  # depth-supervised fit steps
+WS_VIEWS, WS_TARGETS = 30, 4  # whole scene: context and target views
+WS_DEPTH = 128  # whole scene: depth planes
+# The card against the host CPU on shared weights (``encode_witness``):
+# depth_s-1's relative L2 over the whole-scene scene.  Read on an H100
+# (PERF.md section 6): card against host 1.40e-3 in float32 (another
+# seed's weights: 0.383) and 0.0676 in bfloat16; bfloat16 against float32
+# 0.108 on the card, 0.106 on the host, and 0.46 to 0.62 with a bfloat16
+# path broken in the package (running BN statistics, planes reversed).
+# Faults that move bfloat16 less (softmax or BN statistics in bfloat16:
+# 0.108 and 0.110) are held against JAX by tests/test_torch_whole_scene.py.
+WITNESS_LIMITS = {"card_vs_host_f32": 1e-2, "card_vs_host_bf16": 0.2, "card_bf16_vs_f32": 0.15}
+FVT_STEPS = 2  # scannet/fvt fit steps
+DET_STEPS = 3  # steps of each seeded fit in the determinism check
+DET_TURNS = 2  # rounds of the four timed arms, each forward then backward
 DEPTH_WEIGHTS = ("ms_gradient_weight", "scale_invariant_weight", "normals_weight",
                  "mv_consistency_weight")
 LPIPS_SEED = 111124  # the training LPIPS's seed (cfg.seed + 1): no pretrained weights ship
+VIEW_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
 ROOT = Path(__file__).resolve().parent
 BASELINE: Path | None = None  # --baseline: another tree's csrc to time against
 
@@ -198,13 +237,30 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
     backward (walked, contributing) pairs, the kernel forward's (out, walk), the cotangent, and the
     backward's largest error after scaling by each column's max)."""
     import torch
-    from freesplat_tpu_torch.ops import rasterizer as R
 
     args = (inst, binning.tile_start, binning.tile_count, tiles_x)
+    err, pairs, (k, k_walk), _ = compare_forward(args)
+    rng = np.random.default_rng(seed)
+    cot = torch.from_numpy(rng.standard_normal(tuple(k.shape)).astype(np.float32)).to(k.device)
+    bwd_err, scaled, walked, contributed = check_bwd(args, k, k_walk, cot)
+    return err, bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
+
+
+def compare_forward(args):
+    """The forward kernel vs its plain version on one input, bit-equal
+    (color, depth, log T and the ``walk`` residual).  Returns (max abs
+    error, (evaluated, blended, stopped) pairs, the kernel's (out, walk),
+    the plain version's ms)."""
+    import torch
+    from freesplat_tpu_torch.ops import rasterizer as R
+
     with torch.no_grad():
         k, k_walk = R.composite_tiles_fwd(*args)
+        sync()
+        t0 = time.perf_counter()
         p, p_walk, pairs = R.composite_tiles_plain(*args, count_pairs=True)
-    sync()
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
     rgb, depth, log_t = ((k[..., c] - p[..., c]).abs().max().item() if k.numel() else 0.0
                          for c in (slice(0, 3), 3, 4))
     if not (rgb == 0.0 and depth == 0.0 and log_t == 0.0):
@@ -212,10 +268,7 @@ def compare_tiles(inst, binning, tiles_x, seed=0):
     if not torch.equal(k_walk, p_walk):
         raise AssertionError(f"forward kernel vs plain: walk residual differs at "
                              f"{int((k_walk != p_walk).sum())} pixels")
-    rng = np.random.default_rng(seed)
-    cot = torch.from_numpy(rng.standard_normal(tuple(k.shape)).astype(np.float32)).to(k.device)
-    bwd_err, scaled, walked, contributed = check_bwd(args, k, k_walk, cot)
-    return max(rgb, depth, log_t), bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
+    return max(rgb, depth, log_t), pairs, (k, k_walk), plain_ms
 
 
 def check_bwd(args, out, walk, cot):
@@ -476,16 +529,29 @@ def view_inputs(encoder, capacity_factor, scene, view=0):
     """The compositor's inputs for one target view of ``scene``, from the
     encoder's Gaussians, as the decoder builds them."""
     import torch
+
+    ctx = {k: torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(DEVICE)
+           for k, a in scene["context"].items() if k in VIEW_KEYS}
+    tgt = {k: torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(DEVICE)
+           for k, a in scene["target"].items() if k in VIEW_KEYS}
+    with torch.no_grad():
+        g = encoder(ctx)["gaussians"]
+    inst, binning = gaussian_view_inputs(g, tgt, capacity_factor, view)
+    return inst, binning, ctx, tgt
+
+
+def gaussian_view_inputs(g, tgt, capacity_factor, view=0):
+    """The compositor's inputs for target view ``view`` of the Gaussians
+    ``g`` (batch 1), as the decoder builds them; the Gaussians must be
+    finite, one a context pixel."""
+    import torch
     from freesplat_tpu_torch.ops import rasterizer as R
     from freesplat_tpu_torch.ops.rendering import preprocess_gaussians
 
-    ctx = {k: torch.from_numpy(np.asarray(a)).to(DEVICE) for k, a in scene["context"].items()}
-    tgt = {k: torch.from_numpy(np.asarray(a)).to(DEVICE) for k, a in scene["target"].items()}
     with torch.no_grad():
-        g = encoder(ctx)["gaussians"]
         for f in ("means", "covariances", "harmonics", "opacities"):
             x = getattr(g, f)
-            if x.shape[:2] != (1, 2 * H * W) or not torch.isfinite(x).all():
+            if x.shape[1] % (H * W) or not torch.isfinite(x).all():
                 raise AssertionError(f"encoder output {f}: shape {tuple(x.shape)} or non-finite")
         near = tgt["near"][0, view]
         extr = tgt["extrinsics"][0, view].clone()
@@ -497,14 +563,15 @@ def view_inputs(encoder, capacity_factor, scene, view=0):
         binning = R.bin_gaussians(
             screen, (H, W), R.render_capacity(g.means.shape[1], capacity_factor))
         inst = R.build_instance_rows(screen, binning)
-    return inst, binning, ctx, tgt
+    return inst, binning
 
 
 def _count_dicts():
+    from freesplat_tpu_torch.ops import gather as G
     from freesplat_tpu_torch.ops import rasterizer as R
     from freesplat_tpu_torch.scripts import probe_r3
 
-    return R.launch_count, probe_r3.launch_count
+    return R.launch_count, probe_r3.launch_count, G.launch_count
 
 
 def launch_counts() -> dict:
@@ -524,7 +591,7 @@ def check_test_outputs(out: Path, summary: dict, launches: dict, views: int, lab
     and each scene's frame folders, and the forward kernel launched once
     per target view, no other kernel."""
     if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
-                                         "gather_rows": 0}:
+                                         "gather_rows": 0, "segment_sum": 0}:
         raise AssertionError(f"{label} launches {launches} for {views} target views")
     if not all(math.isfinite(v) for v in summary.values()):
         raise AssertionError(f"{label}: non-finite summary {summary}")
@@ -632,7 +699,9 @@ def train_run():
     from freesplat_tpu_torch.config.config import load_config
     from freesplat_tpu_torch.ops import rasterizer as R
     from freesplat_tpu_torch.training.lpips import make_lpips
-    from freesplat_tpu_torch.training.trainer import TrainCfg, fit, init_state, make_train_step
+    from freesplat_tpu_torch.training.trainer import (
+        TrainCfg, deterministic_cudnn, fit, init_state, make_train_step,
+    )
 
     # As in serving, seeded random weights need more than the preset's
     # 3.0 instances per Gaussian.
@@ -658,9 +727,11 @@ def train_run():
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     want = TRAIN_TARGET_VIEWS * TRAIN_STEPS
+    sums = TRAIN_STEPS * segment_sums_per_step(cfg, 2, TRAIN_TARGET_VIEWS)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
-                                         "gather_rows": 0}:
-        raise AssertionError(f"training launches {launches}, want {want} of each kernel")
+                                         "gather_rows": 0, "segment_sum": sums}:
+        raise AssertionError(f"training launches {launches}, want {want} of each rasterizer "
+                             f"kernel and {sums} segment sums")
     if [s for s, _ in logged] != list(range(TRAIN_STEPS)):
         raise AssertionError(f"fit logged steps {[s for s, _ in logged]}")
     for step, vals in logged:
@@ -703,7 +774,8 @@ def train_run():
             holder["state"], _ = step_fn(holder["state"], scenes[TRAIN_STEPS])
 
         saved = dict(R.launch_count)
-        profile_window(one_step, f"one warm train step ({TRAIN_TARGET_VIEWS} target views)")
+        with deterministic_cudnn():  # as fit runs it
+            profile_window(one_step, f"one warm train step ({TRAIN_TARGET_VIEWS} target views)")
         R.launch_count.update(saved)
     return launches, cmp[:2], timing
 
@@ -765,9 +837,12 @@ def train_depth_run():
         R.composite_tiles_bwd = own_bwd
     launches = launch_counts()
     want = TRAIN_TARGET_VIEWS * DEPTH_STEPS
+    # The multi-view depth term gathers once a step.
+    sums = DEPTH_STEPS * (segment_sums_per_step(cfg, 2, TRAIN_TARGET_VIEWS) + 1)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
-                                         "gather_rows": 0}:
-        raise AssertionError(f"depth-supervised launches {launches}, want {want} of each kernel")
+                                         "gather_rows": 0, "segment_sum": sums}:
+        raise AssertionError(f"depth-supervised launches {launches}, want {want} of each "
+                             f"rasterizer kernel and {sums} segment sums")
     parts = [f"loss_depth_{k}" for k in ("grad", "si", "normals", "mv")]
     if [s for s, _ in logged] != list(range(DEPTH_STEPS)):
         raise AssertionError(f"fit logged steps {[s for s, _ in logged]}")
@@ -981,7 +1056,8 @@ def probe_run():
     reset_launch_counts()
     results = probe_r3.main(["all"], device=DEVICE)
     launches = launch_counts()
-    if DEVICE == "cuda" and not all(launches.values()):
+    if DEVICE == "cuda" and not all(launches[k] for k in ("rasterize_fwd", "rasterize_bwd",
+                                                          "gather_rows")):
         raise AssertionError(f"probe path launches {launches}: a kernel was not launched")
     r = results["raster"]
     if not (r["color_max_abs"] <= TOL_COLOR and r["grad_rel"] <= TOL_GRAD):
@@ -1145,6 +1221,494 @@ def cli_run():
     return total, step_ms
 
 
+def segment_sums_per_step(cfg, context_views, target_views) -> int:
+    """Segment-sum launches of one train step: one for each target view's
+    instance gather, four (the bilinear taps) for each plane chunk of the
+    cost volume (``models/cost_volume.py``)."""
+    from freesplat_tpu_torch.models.cost_volume import CostVolume
+
+    sources = min(cfg.encoder.num_views, context_views) - 1
+    n = (H // 4) * (W // 4)
+    d = cfg.encoder.num_depth_candidates
+    chunk = max(1, min(d, CostVolume.budget_rows // max(context_views * sources * n, 1)))
+    return target_views + 4 * -(-d // chunk)
+
+
+def whole_scene_batches(n_scenes, seed=0):
+    """``whole_scene_bench``'s synthetic scenes (a fresh Gaussian cloud
+    each, tile-rendered on the card), drawn before the run so that their
+    renders are not counted as the run's launches."""
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+
+    it = synthetic_batches(SyntheticCfg(image_shape=(H, W), num_context=WS_VIEWS,
+                                        num_target=WS_TARGETS, renderer="tile", vary_scene=True,
+                                        seed=seed), device=DEVICE)
+    scenes = [next(it) for _ in range(n_scenes)]
+    sync()
+    return scenes
+
+
+def whole_scene_pass(scenes, overrides, label):
+    """``run_test`` over ``scenes`` with ``whole_scene_bench``'s config and
+    ``overrides``; checks the launches (one forward a target view) and
+    the summary, prints each scene's phase split.  Returns (summary,
+    timings, peak bytes, launches)."""
+    import torch
+    from freesplat_tpu_torch.evaluation.harness import run_test
+    from freesplat_tpu_torch.scripts.whole_scene_bench import bench_config
+
+    timings: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = bench_config(WS_VIEWS, H, W, tmp, WS_DEPTH, overrides=overrides)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = run_test(cfg, batches=iter(scenes), device=DEVICE, timings=timings)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        stats = json.loads((Path(tmp) / "stats.json").read_text())
+    views = WS_TARGETS * len(scenes)
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
+                                         "gather_rows": 0, "segment_sum": 0}:
+        raise AssertionError(f"{label} launches {launches} for {views} target views")
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"{label}: non-finite summary {summary}")
+    ms = {k: [round(1e3 * t, 2) for t in v] for k, v in timings.items()}
+    chunks = len(ms["B_trunk_s"]) // len(scenes)
+    for i, e in enumerate(stats["per_scene"]):
+        log(f"[{label}] scene {i} ({e['scene']}, {WS_VIEWS} context views {H}x{W}): encode "
+            f"{ms['encoder_s'][i]} ms = A match {ms['A_match_s'][i]}, geometry "
+            f"{ms['A_geometry_s'][i]}, B trunk {ms['B_trunk_s'][i * chunks:(i + 1) * chunks]} "
+            f"(chunks of {cfg.test.encode_view_chunk}), concat {ms['B_concat_s'][i]}, C1 PTF "
+            f"{ms['C1_ptf_s'][i]}, "
+            f"C2 head {ms['C2_head_s'][i]}; render {ms['decoder_s_per_view'][i]} ms a view; "
+            f"metrics {ms['metrics_s'][i]} ms, dumps {ms['dumps_s'][i]} ms; num_gaussians "
+            f"{e['num_gaussians']:.0f}, gs_ratio {e['gs_ratio']:.4f}, dropped "
+            f"{e['dropped_instances']:.0f}, psnr {e['psnr']:.3f}")
+    log(f"[{label}] {len(scenes)} scenes, wall {wall:.2f} s, peak memory {peak} B, launches "
+        f"{launches}")
+    return summary, timings, peak, launches
+
+
+def state_digest(module) -> str:
+    """The first 16 hex digits of the sha256 of ``module``'s state_dict
+    (names and bytes, in order): one seed's weights compared across
+    machines and torch versions."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in module.state_dict().items():
+        h.update(k.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def encode_witness(ctx):
+    """Card against host CPU on shared weights: ``whole_scene_bench``'s
+    encoder from its seed, in float32 and in bfloat16, encodes the scene
+    ``ctx`` with the chunked encode on the card ("card"), and a copy of
+    the same module moved to the host CPU encodes it there ("host").
+    Returns ({(where, dtype): depth_s-1 on the CPU}, {(where, dtype):
+    seconds}, the card's float32 Gaussians, the weights'
+    ``state_digest``)."""
+    import copy
+
+    import torch
+    from freesplat_tpu_torch.evaluation.harness import make_chunked_encode
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.scripts.whole_scene_bench import bench_config
+
+    depth, secs, gaussians, digest = {}, {}, None, None
+    host_ctx = {k: v.cpu() for k, v in ctx.items()}
+    for dtype in ("float32", "bfloat16"):
+        cfg = bench_config(WS_VIEWS, H, W, "unused", WS_DEPTH,
+                           overrides=[f"encoder.compute_dtype={dtype}"])
+        encoder = make_encoder(dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
+                               device=DEVICE, seed=cfg.seed)
+        digest = digest or state_digest(encoder)
+        for where, enc, c in (("card", encoder, ctx),
+                              ("host", copy.deepcopy(encoder).cpu(), host_ctx)):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = make_chunked_encode(enc, cfg.test.encode_view_chunk)(c)
+            depth[where, dtype] = out["depth_s-1"].float().cpu()
+            secs[where, dtype] = time.perf_counter() - t0
+            if (where, dtype) == ("card", "float32"):
+                gaussians = out["gaussians"]
+            del enc, out
+        del encoder
+    return depth, secs, gaussians, digest
+
+
+def witness_readings(depth) -> dict:
+    """Relative L2 of ``depth_s-1`` between the witness's four encodes,
+    over the scene and in its worst view."""
+    import torch
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    pairs = {"card_vs_host_f32": (("card", "float32"), ("host", "float32")),
+             "card_vs_host_bf16": (("card", "bfloat16"), ("host", "bfloat16")),
+             "card_bf16_vs_f32": (("card", "bfloat16"), ("card", "float32")),
+             "host_bf16_vs_f32": (("host", "bfloat16"), ("host", "float32"))}
+    return {name: (rel(depth[a], depth[b]),
+                   max(rel(x, y) for x, y in zip(depth[a][0], depth[b][0])))
+            for name, (a, b) in pairs.items()}
+
+
+def whole_scene_run():
+    """The whole-scene path (``scripts/whole_scene_bench.py``'s config
+    through ``run_test``): 2 synthetic scenes of WS_VIEWS context and
+    WS_TARGETS target views at 384x512, D = 128, nearest-5 sources,
+    15 views a trunk chunk, render capacity factor 1.0; float32,
+    then ``encoder.compute_dtype=bfloat16`` on the same scenes.  Then the
+    encoder on the card against the same weights on the host CPU
+    (``encode_witness``) on the first scene, float32 and bfloat16; and the
+    forward kernel vs plain on one target view of that scene's fused
+    Gaussians.  Returns the launches of both passes and the forward
+    kernel's numbers at the whole-scene view."""
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.utils.timing import device_bench
+
+    scenes = whole_scene_batches(2)
+    _, f32_t, _, launches = whole_scene_pass(scenes, [], "whole_scene")
+    _, bf16_t, _, bf16_launches = whole_scene_pass(
+        scenes, ["encoder.compute_dtype=bfloat16"], "whole_scene_bf16")
+    log(f"[whole_scene_bf16] warm encode (scene 1) {1e3 * bf16_t['encoder_s'][1]:.2f} ms in "
+        f"bfloat16 against {1e3 * f32_t['encoder_s'][1]:.2f} ms in float32 (same run); trunk "
+        f"chunks {[round(1e3 * t, 2) for t in bf16_t['B_trunk_s'][-2:]]} against "
+        f"{[round(1e3 * t, 2) for t in f32_t['B_trunk_s'][-2:]]} ms")
+
+    ctx = {k: scenes[0]["context"][k] for k in VIEW_KEYS}
+    tgt = {k: scenes[0]["target"][k] for k in VIEW_KEYS}
+    depth, secs, gaussians, digest = encode_witness(ctx)
+    read = witness_readings(depth)
+    d32 = depth["card", "float32"]
+    log(f"[witness] scene 0, weights {digest}: depth_s-1 relative L2 (scene; worst view) "
+        + ", ".join(f"{k} {v[0]:.4g}; {v[1]:.4g}" for k, v in read.items())
+        + f"; card float32 depth {float(d32.min()):.4g} to {float(d32.max()):.4g}, std "
+        f"{float(d32.std()):.4g}; encode s "
+        + ", ".join(f"{w} {d} {t:.2f}" for (w, d), t in secs.items()))
+    if not all(bool(x.isfinite().all()) for x in depth.values()):
+        raise AssertionError("non-finite depth_s-1 in the card/host witness")
+    for name, limit in WITNESS_LIMITS.items():
+        if read[name][0] > limit:
+            raise AssertionError(f"witness {name}: relative L2 {read[name][0]} > {limit}")
+
+    inst, binning = gaussian_view_inputs(gaussians, tgt, 1.0, view=0)
+    del gaussians
+    saved = dict(R.launch_count)
+    args = (inst, binning.tile_start, binning.tile_count, W // 16)
+    err, pairs, _, plain_ms = compare_forward(args)
+    ms = device_bench(R.composite_tiles_fwd, [args], n=10) * 1e3
+    R.launch_count.update(saved)  # comparison launches, not the main path's
+    k = inst.shape[0]
+    num_tiles = binning.tile_start.shape[0]
+    evaluated, blended, stopped = pairs
+    bound = _bound(k * 40 + num_tiles * 8 + num_tiles * 256 * (5 + 1) * 4,
+                   blended * FLOPS_PER_PAIR + stopped * FLOPS_PER_PAIR_STOP
+                   + (evaluated - blended - stopped) * FLOPS_PER_PAIR_CUT)
+    count = binning.tile_count.long()
+    log(f"[whole_scene] target view 0 of scene 0: forward kernel vs plain max_err {err} (walk "
+        f"equal); {k} instances of {int(binning.num_instances)} (dropped "
+        f"{int(binning.dropped)}); tiles {num_tiles}, instances a tile max {int(count.max())} "
+        f"mean {float(count.float().mean()):.1f}, {int((count >= R.MAX_TILE_INSTANCES).sum())} "
+        f"at the {R.MAX_TILE_INSTANCES} cap; kernel {ms:.4f} ms (device time), plain "
+        f"{plain_ms:.2f} ms, bound {bound[0]:.4f} ms ({bound[1]}; {evaluated} pairs evaluated, "
+        f"{blended} blended, {stopped} terminating)")
+    return {"whole_scene": launches, "whole_scene_bf16": bf16_launches}, err, \
+        (ms, plain_ms, *bound)
+
+
+def write_scannet_scene(root: Path, index_path: Path, seed=8) -> str:
+    """A ScanNet-layout test scene at 640x480 for the first key of
+    ``index_path``: JPEG color and uint16 millimetre depth with holes at
+    frame 0 (the loader reads its size) and at the indices the key names,
+    intrinsics, and c2w poses for every frame up to the last on a slow
+    arc.  Returns the key."""
+    from PIL import Image
+
+    key, entry = next(iter(json.loads(index_path.read_text()).items()))
+    frames = sorted({0, *entry["context"], *entry["target"], *entry.get("extrapolation", [])})
+    n = frames[-1] + 1
+    scene = root / "test" / key[:-2]  # the loader strips the "_0" suffix
+    for sub in ("color", "depth", "intrinsic"):
+        (scene / sub).mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    depth_mm = (1000 * sensor_depth(rng, len(frames), 480, 640)).astype(np.uint16)
+    for j, i in enumerate(frames):
+        coarse = rng.uniform(size=(30, 40, 3))
+        color = np.repeat(np.repeat(coarse, 16, axis=0), 16, axis=1)
+        color = np.clip(color + 0.05 * rng.standard_normal(color.shape), 0, 1)
+        Image.fromarray((255 * color).astype(np.uint8), "RGB").save(scene / "color" / f"{i}.jpg")
+        Image.fromarray(depth_mm[j]).save(scene / "depth" / f"{i}.png")
+    k = np.array([[577.0, 0, 319.5, 0], [0, 577, 239.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    np.savetxt(scene / "intrinsic" / "intrinsic_color.txt", k)
+    extr = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i, t in enumerate(np.linspace(0.0, 1.0, n)):
+        a = 0.3 * t
+        extr[i, :3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+        extr[i, :3, 3] = [1.2 * t, 0.0, 0.2 * t]
+    np.save(scene / "extrinsics.npy", extr)
+    (root / "test_idx.txt").write_text(f"{key}\n")
+    return key
+
+
+def fvt_cli_run():
+    """``main +experiment=scannet/fvt mode=test`` on one ScanNet-layout
+    scene with the 10-view evaluation index, 10 context views, 5 views a
+    trunk chunk; stats, dumps and launches checked as in serving."""
+    from freesplat_tpu_torch import main as M
+
+    index = ROOT / "assets" / "evaluation_index_scannet_10views.json"
+    entry = next(iter(json.loads(index.read_text()).values()))
+    views = len(entry["target"]) + len(entry.get("extrapolation", []))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        key = write_scannet_scene(tmp / "scannet", index)
+        out = tmp / "out"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        M.main(["+experiment=scannet/fvt", "mode=test", f"dataset.roots=[{tmp / 'scannet'}]",
+                f"dataset.evaluation_index_path={index}", "dataset.num_context_views=10",
+                "test.encode_view_chunk=5", f"test.output_path={out}",
+                f"dataset.image_shape=[{H},{W}]",
+                "test.render_capacity_factor=8.0", f"loss.lpips.weights_path={lpips_npz()}"],
+               device=DEVICE)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        stats = json.loads((out / "stats.json").read_text())
+        summary = stats["summary"]
+        check_test_outputs(out, summary, launches, views, "fvt_cli")
+        (scene,) = stats["per_scene"]
+        if (scene["scene"], scene["num_views"]) != (key, views):
+            raise AssertionError(f"fvt_cli scene {scene['scene']} with {scene['num_views']} views")
+        contexts = len(list((out / key / "context").glob("*.png")))
+        if contexts != 10:
+            raise AssertionError(f"fvt_cli dumped {contexts} context frames, want 10")
+    log(f"[fvt_cli] {key} through main +experiment=scannet/fvt mode=test: 10 context views in "
+        f"chunks of 5, {views} target views ({len(entry.get('extrapolation', []))} "
+        f"extrapolation), wall {wall:.2f} s, num_gaussians {scene['num_gaussians']:.0f}, "
+        f"interpolation psnr {summary['interpolation_psnr']:.3f}, extrapolation psnr "
+        f"{summary['extrapolation_psnr']:.3f}, depth_abs_rel {summary['depth_abs_rel']:.4f}, "
+        f"launches {launches}")
+    return launches
+
+
+def fvt_train_run():
+    """FVT_STEPS full-width ``fit`` steps of the ``scannet/fvt`` preset
+    (nearest-5 sources) on tile-rendered synthetic scenes of 8 context and
+    TRAIN_TARGET_VIEWS target views, drawn before the run.  Checks the
+    launches of every kernel, the metrics and the moved parameters."""
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+    from freesplat_tpu_torch.training.lpips import make_lpips
+    from freesplat_tpu_torch.training.trainer import TrainCfg, fit, init_state
+
+    cfg = load_config(["+experiment=scannet/fvt", "mode=train", "decoder.capacity_factor=8.0"])
+    v_ctx = cfg.dataset.num_context_views
+    it = synthetic_batches(SyntheticCfg(image_shape=(H, W), num_context=v_ctx,
+                                        num_target=TRAIN_TARGET_VIEWS, renderer="tile",
+                                        vary_scene=True, seed=5), device=DEVICE)
+    scenes = [next(it) for _ in range(FVT_STEPS)]
+    tcfg = TrainCfg(encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss,
+                    optimizer=cfg.optimizer, log_every=1)
+    state = init_state(tcfg, seed=cfg.seed, device=DEVICE)
+    lpips = make_lpips(device=DEVICE, seed=LPIPS_SEED)
+    params0 = {k: p.detach().clone() for k, p in state["encoder"].named_parameters()}
+    logged: list = []
+    timings: dict = {}
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = fit(tcfg, state, iter(scenes), FVT_STEPS, lpips=lpips,
+                log_fn=lambda step, vals: logged.append((step, vals)), timings=timings)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    want = TRAIN_TARGET_VIEWS * FVT_STEPS
+    sums = FVT_STEPS * segment_sums_per_step(cfg, v_ctx, TRAIN_TARGET_VIEWS)
+    if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
+                                         "gather_rows": 0, "segment_sum": sums}:
+        raise AssertionError(f"fvt training launches {launches}, want {want} of each rasterizer "
+                             f"kernel and {sums} segment sums")
+    if [s for s, _ in logged] != list(range(FVT_STEPS)):
+        raise AssertionError(f"fit logged steps {[s for s, _ in logged]}")
+    for step, vals in logged:
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"fvt step {step}: non-finite metrics {vals}")
+        log(f"[fvt_train] step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()))
+    moved = sum(not torch.equal(params0[k], p) for k, p in state["encoder"].named_parameters())
+    if not moved:
+        raise AssertionError("fvt training moved no parameter")
+    step_ms = [round(1e3 * sum(x), 2) for x in zip(timings["forward_s"], timings["backward_s"],
+                                                    timings["optimizer_s"])]
+    log(f"[fvt_train] {FVT_STEPS} steps of {v_ctx} context (nearest-"
+        f"{cfg.encoder.num_views - 1} sources) and {TRAIN_TARGET_VIEWS} target views, wall "
+        f"{wall:.2f} s; ms per step {step_ms} (forward "
+        f"{[round(1e3 * t, 2) for t in timings['forward_s']]}, backward "
+        f"{[round(1e3 * t, 2) for t in timings['backward_s']]}); peak memory {peak} B; "
+        f"{moved} parameter leaves moved; launches {launches}")
+    return launches
+
+
+def determinism_run():
+    """Two ``fit`` runs of DET_STEPS full-width steps (``scannet/2views``,
+    8 target views) from one seed: losses and every parameter bit-equal.
+    Then the cost of the repair: warm steps in four arms, the gathers'
+    backward (``take_rows`` or ``index_select``, whose backward is
+    ``index_add_``) crossed with cuDNN (free, or held deterministic as
+    ``fit`` holds it), in turns; ``index_select`` with cuDNN free is the
+    train step as it was before the repair.  Last, the segment-sum kernel
+    vs its plain version on the inputs of one step's launches (bit-equal),
+    timed beside the plain version and ``index_add_``.  Returns the
+    kernel's (max abs error, per-step ms, plain ms, library ms, bound ms,
+    bound by)."""
+    import contextlib as _ctx
+
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.ops import gather as G
+    from freesplat_tpu_torch.training.lpips import make_lpips
+    from freesplat_tpu_torch.training.trainer import (
+        TrainCfg, deterministic_cudnn, fit, init_state, make_train_step,
+    )
+    from freesplat_tpu_torch.utils.timing import device_bench
+
+    cfg = load_config(["+experiment=scannet/2views", "mode=train", "decoder.capacity_factor=8.0"])
+    tcfg = TrainCfg(encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss,
+                    optimizer=cfg.optimizer, log_every=1)
+    lpips = make_lpips(device=DEVICE, seed=LPIPS_SEED)
+    scenes = [make_scene(40 + i, v_tgt=TRAIN_TARGET_VIEWS) for i in range(DET_STEPS)]
+    runs = []
+    for _ in range(2):
+        state = init_state(tcfg, seed=cfg.seed, device=DEVICE)
+        losses: list = []
+        fit(tcfg, state, iter(scenes), DET_STEPS, lpips=lpips,
+            log_fn=lambda step, vals: losses.append(vals["loss"]))
+        sync()
+        runs.append((losses, {k: p.detach().clone()
+                              for k, p in state["encoder"].named_parameters()}))
+    (l1, p1), (l2, p2) = runs
+    diff = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+    differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    log(f"[determinism] two fits of {DET_STEPS} steps from seed {cfg.seed}: losses {l1} and "
+        f"{l2}; parameters: largest difference {diff}, {len(differ)} of {len(p1)} leaves differ")
+    if l1 != l2 or differ:
+        raise AssertionError(f"two seeded fits differ: losses {l1} vs {l2}, leaves {differ[:5]}")
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("fit left cuDNN held deterministic")
+    # The same two runs outside ``fit``, with cuDNN free to pick any
+    # algorithm: they drift apart (printed, not checked).
+    step = make_train_step(tcfg, lpips)
+    runs = []
+    for _ in range(2):
+        state = init_state(tcfg, seed=cfg.seed, device=DEVICE)
+        for sc in scenes:
+            state, _ = step(state, sc)
+        sync()
+        runs.append({k: p.detach().clone() for k, p in state["encoder"].named_parameters()})
+    free = max(float((runs[0][k] - runs[1][k]).abs().max()) for k in runs[0])
+    log(f"[determinism] the same with cuDNN's algorithms left free: largest parameter "
+        f"difference {free}, {sum(not torch.equal(runs[0][k], runs[1][k]) for k in runs[0])} "
+        f"leaves differ")
+
+    holder = {"state": init_state(tcfg, seed=cfg.seed, device=DEVICE)}
+
+    @_ctx.contextmanager
+    def index_select_gathers():
+        """Inside, ``take_rows`` is plain ``index_select`` (backward
+        ``index_add_``, float atomics): the gather it replaced."""
+        G._TakeRows.apply = staticmethod(lambda x, index: x.index_select(0, index))
+        try:
+            yield
+        finally:
+            del G._TakeRows.apply  # back to autograd.Function's own
+
+    arms = [(g, c) for g in ("index_select", "take_rows") for c in ("free", "deterministic")]
+
+    def steps(arm, timed=True):
+        gathers, cudnn = arm
+        ms = []
+        with (index_select_gathers() if gathers == "index_select" else _ctx.nullcontext()), \
+                (deterministic_cudnn() if cudnn == "deterministic" else _ctx.nullcontext()):
+            for sc in scenes if timed else scenes[:1]:
+                sync()
+                t0 = time.perf_counter()
+                holder["state"], _ = step(holder["state"], sc)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    for arm in arms:
+        steps(arm, timed=False)  # warm
+    turns: dict = {arm: [] for arm in arms}
+    order = (arms + arms[::-1]) * DET_TURNS
+    for arm in order:
+        turns[arm] += steps(arm)
+    med = {arm: float(np.median(v)) for arm, v in turns.items()}
+    base = med[("index_select", "free")]
+    for arm in arms:
+        log(f"[determinism] warm steps, gathers {arm[0]}, cuDNN {arm[1]}: "
+            f"{[round(t, 2) for t in turns[arm]]} median {med[arm]:.2f} ms "
+            f"({100 * (med[arm] / base - 1):+.2f} % against index_select with cuDNN free)")
+    log(f"[determinism] in turns ({len(order)} turns of {DET_STEPS} steps, the four arms "
+        f"forward then backward): the repair (take_rows, cuDNN deterministic) costs "
+        f"{100 * (med[('take_rows', 'deterministic')] / base - 1):+.2f} % a warm step; "
+        f"take_rows alone {100 * (med[('take_rows', 'free')] / base - 1):+.2f} %, cuDNN "
+        f"deterministic alone {100 * (med[('index_select', 'deterministic')] / base - 1):+.2f} %")
+
+    captured: list = []
+    own = G.segment_sum
+
+    def capture(src, order, offsets, rows):
+        captured.append((src.clone(), order.clone(), offsets.clone(), rows))
+        return own(src, order, offsets, rows)
+
+    G.segment_sum = capture
+    try:
+        with deterministic_cudnn():
+            holder["state"], _ = step(holder["state"], scenes[0])
+    finally:
+        G.segment_sum = own
+    saved = dict(G.launch_count)
+    err, ms, plain_ms, lib_ms, nbytes, longest = 0.0, 0.0, 0.0, 0.0, 0, 0
+    for src, order, offsets, rows in captured:
+        k = G.segment_sum(src, order, offsets, rows)
+        p = G.segment_sum_plain(src, order, offsets, rows)
+        sync()
+        if not torch.equal(k, p):
+            raise AssertionError(f"segment_sum kernel vs plain at ({rows}, {src.shape}): max abs "
+                                 f"error {float((k - p).abs().max())}")
+        index = torch.empty_like(order)
+        index[order] = torch.repeat_interleave(torch.arange(rows, device=order.device),
+                                               offsets[1:] - offsets[:-1])
+        a = (src, order, offsets, rows)
+        ms += device_bench(G.segment_sum, [a], n=20) * 1e3
+        plain_ms += cuda_ms(lambda: G.segment_sum_plain(*a), reps=1)
+        zeros = torch.zeros((rows, src.shape[1]), device=src.device)
+        lib_ms += device_bench(lambda s, i: zeros.index_add_(0, i, s), [(src, index)], n=20) * 1e3
+        n, cols = src.shape
+        nbytes += n * cols * 4 + n * 8 + (rows + 1) * 8 + rows * cols * 4
+        longest = max(longest, int((offsets[1:] - offsets[:-1]).max()))
+    G.launch_count.update(saved)  # comparison and timing launches, not the main path's
+    ops = sum(s.numel() for s, *_ in captured)
+    bound = _bound(nbytes, ops)
+    shapes = sorted({(r, s.shape[0], s.shape[1]) for s, _, _, r in captured})
+    log(f"[determinism] segment_sum: the {len(captured)} launches of one train step (rows, "
+        f"entries, columns: {shapes}; longest segment {longest}) equal the plain version bit "
+        f"for bit; a step's launches take {ms:.4f} ms (device time), plain {plain_ms:.2f} ms, "
+        f"index_add_ {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; {nbytes} B)")
+    return 0.0, (ms, plain_ms, lib_ms, *bound)
+
+
 def profile_window(fn, label):
     """torch.profiler over one warm call of ``fn``: the device's busy share
     of the host wall time and the top kernels by device time."""
@@ -1197,7 +1761,7 @@ def main(argv=None) -> int:
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"tf32 cudnn {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    names = ["rasterize_fwd", "rasterize_bwd", "gather_rows"]
+    names = ["rasterize_fwd", "rasterize_bwd", "gather_rows", "segment_sum"]
     cuda_build.build_all(names)
     log(f"[build] {names} in {time.perf_counter() - t0:.2f} s")
     for k in names:
@@ -1208,6 +1772,9 @@ def main(argv=None) -> int:
     errs.append(bench_err)
     serve_launches, serve_err = slice_run()
     errs.append(serve_err)
+    ws_launches, ws_err, ws_t = whole_scene_run()
+    errs.append((ws_err, 0.0))
+    fvt_cli_launches = fvt_cli_run()
     train_launches, train_err, timing = train_run()
     errs.append(train_err)
     depth_launches, depth_bwd_err, _ = train_depth_run()
@@ -1216,12 +1783,18 @@ def main(argv=None) -> int:
     gather_err, gather_t = gather_phase()
     probe_launches, probe = probe_run()
     cli_launches, _ = cli_run()
+    fvt_train_launches = fvt_train_run()
+    seg_err, seg_t = determinism_run()
     for k, (ms, plain_ms, bound_ms, bound_by) in bench_t.items():
         log(f"[bench] {k} at the bench scene: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
 
+    ms, plain_ms, bound_ms, bound_by = ws_t
+    log(f"[whole_scene] rasterize_fwd at a whole-scene view: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     paths = {"serve": serve_launches, "train": train_launches, "train_depth": depth_launches,
-             "replica": replica_launches, "probe": probe_launches, **cli_launches}
+             "replica": replica_launches, "probe": probe_launches, **cli_launches,
+             **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]
@@ -1248,6 +1821,23 @@ def main(argv=None) -> int:
         "launches": probe_launches["gather_rows"],
         "launches_by_path": {p: c.get("gather_rows", 0) for p, c in paths.items()},
         "max_abs_err": max(gather_err, *(r["max_abs_err"] for r in probe["gather"])),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    })
+    ms, plain_ms, lib_ms, bound_ms, bound_by = seg_t
+    rows.append({
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "freesplat_tpu_torch/csrc/segment_sum.cu",
+        # No TPU kernel: XLA computes the gathers' backward on the TPU as
+        # a deterministic scatter-add, and no pallas_call does it.
+        "replaces": None,
+        "launches": train_launches["segment_sum"],
+        "launches_by_path": {p: c.get("segment_sum", 0) for p, c in paths.items()},
+        "max_abs_err": seg_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -9,9 +9,10 @@ sensor depth -> frame and depth-colormap dumps; then the view-weighted
 per-scene averages and ``benchmark.json``, ``peak_memory.json`` (the
 port's own format, ``utils/benchmarker.py``) and ``stats.json`` under
 ``test.output_path``.  Without ``batches`` it reads the configured
-dataset (``main.make_batches``).  Not ported yet: PLY and video export,
-``view_shard`` and ``encode_view_chunk``; a cfg that asks for one raises
-NotImplementedError.
+dataset (``main.make_batches``).  ``test.encode_view_chunk`` encodes a
+scene in chunks of views (``make_chunked_encode``, the whole-scene path).
+Not ported yet: PLY and video export and ``view_shard``; a cfg that asks
+for one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ from PIL import Image
 
 from ..config.config import RootCfg
 from ..models.decoder import render_views
-from ..models.encoder import make_encoder
+from ..models.encoder import EncoderFreeSplat, make_encoder, sweep_geometry
+from ..models.ptf import fuse_views
+from ..models.types import Gaussians
 from ..training.checkpoint import latest_step, load_checkpoint
 from ..training.metrics import compute_psnr, compute_ssim, depth_metrics
 from ..utils.benchmarker import Benchmarker
@@ -44,7 +47,6 @@ def _unsupported(cfg: RootCfg) -> list[str]:
         "test.save_ply": t.save_ply,
         "test.save_video": t.save_video,
         "test.view_shard": t.view_shard,
-        "test.encode_view_chunk": t.encode_view_chunk,
     }
     return [k for k, v in asked.items() if v]
 
@@ -57,6 +59,99 @@ def _sync(device: torch.device) -> None:
 def _save_image(array: np.ndarray, path: Path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray((np.clip(np.asarray(array), 0, 1) * 255).astype(np.uint8)).save(path)
+
+
+def make_chunked_encode(
+    encoder: EncoderFreeSplat, view_chunk: int,
+    timings: dict[str, list[float]] | None = None,
+):
+    """Whole-scene encode of one scene (batch 1) on one card, ``view_chunk``
+    views at a time: ``encode(context) -> results`` as ``encoder(context)``
+    returns them (no ``depth_s{i}`` of the lower scales).
+
+    Port of ``freesplat_tpu/evaluation/harness.py::make_chunked_encode``:
+    A, the matching features of every view, by chunks; then
+    ``sweep_geometry`` once over the whole trajectory (nearest-k sources
+    among all views); B, the trunk of each chunk (``stage="trunk_chunk"``)
+    fed its views' gathered source features; C1, PTF over all views
+    (``fuse_views``); C2, the Gaussian head.  The result equals the monolithic encode under
+    running-average BN; with batch-statistics BN each chunk is normalized
+    with its own statistics, as in JAX.
+
+    ``timings``, if given, collects each phase's seconds (host clock
+    around synchronized device work): "A_match_s", "A_geometry_s",
+    "B_trunk_s" (one entry a chunk), "B_concat_s", "C1_ptf_s" and
+    "C2_head_s"."""
+    cfg = encoder.cfg
+
+    def encode(context: dict[str, torch.Tensor]) -> dict[str, Any]:
+        images = context["image"]
+        b, v, h, w, _ = images.shape
+        if b != 1:
+            raise ValueError(f"the chunked whole-scene encode takes one scene, got {b}")
+        device = images.device
+        if timings is not None:
+            _sync(device)
+        clock = [time.perf_counter()]
+
+        def mark(label):
+            if timings is not None:
+                _sync(device)
+                now = time.perf_counter()
+                timings.setdefault(label, []).append(now - clock[0])
+                clock[0] = now
+
+        def sub(sl, extra=None):
+            d = {k: x[:, sl] for k, x in context.items() if k in _VIEW_KEYS}
+            return {**d, **(extra or {})}
+
+        chunks = [slice(s, min(s + view_chunk, v)) for s in range(0, v, view_chunk)]
+        match_bv = torch.cat([encoder(sub(sl), stage="match")["match"] for sl in chunks], dim=1)
+        mh, mw = match_bv.shape[2:4]
+        mark("A_match_s")
+
+        src_idx, src_T_cur, src_K, cur_invK = sweep_geometry(
+            context["extrinsics"][0], context["intrinsics"][0], cfg.num_views, (mh, mw))
+        mark("A_geometry_s")
+
+        outs = []
+        for sl in chunks:
+            extra = {
+                "match_src": match_bv[0][src_idx[sl]][None],
+                "src_T_cur": src_T_cur[None, sl],
+                "src_K": src_K[None, sl],
+                "cur_invK": cur_invK[None, sl],
+            }
+            outs.append(encoder(sub(sl, extra), stage="trunk_chunk"))
+            mark("B_trunk_s")
+        trunk = {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
+        del outs
+        mark("B_concat_s")
+
+        # JAX takes fuse_views_bucketed above 8 views, for XLA's static
+        # shapes; here that is fuse_views itself (models/ptf.py).
+        state = fuse_views(
+            trunk["feat_v"][0], trunk["coords_v"][0], trunk["dens_v"][0], trunk["wt_v"][0],
+            trunk["depth_v"][0], context["extrinsics"][0], context["intrinsics"][0], (h, w),
+            encoder.fuse.gru,
+        )
+        mark("C1_ptf_s")
+
+        g, scales, rotations = encoder.fuse.head(state, context["intrinsics"][0, 0], (h, w))
+        gaussians = Gaussians(*(x[None] for x in g))
+        mark("C2_head_s")
+        num_valid = gaussians.mask.sum(-1)
+        return {
+            "gaussians": gaussians,
+            "num_gaussians": num_valid,
+            "gs_ratio": num_valid / (v * h * w),
+            "depth_s-1": trunk["depth_s-1"],
+            "densities": trunk["densities"],
+            "depth_weights": trunk["depth_weights"],
+            "visualizations": {"scales": scales[None], "rotations": rotations[None]},
+        }
+
+    return encode
 
 
 def run_test(
@@ -82,7 +177,8 @@ def run_test(
     (``training/lpips.py::make_lpips``), or None for no LPIPS score.
     ``timings``, if given, collects per scene "encoder_s",
     "decoder_s_per_view", "metrics_s" and "dumps_s" (host clock around
-    synchronized device work)."""
+    synchronized device work), and with ``test.encode_view_chunk`` the
+    chunked encode's phases (``make_chunked_encode``)."""
     device = resolve_device(device)
     unsupported = _unsupported(cfg)
     if unsupported:
@@ -111,6 +207,9 @@ def run_test(
             load_flax_variables(encoder, state)
         else:
             encoder.load_state_dict(state, strict=True)
+    encode = encoder
+    if cfg.test.encode_view_chunk:
+        encode = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings)
     decoder_cfg = cfg.decoder
     if cfg.test.render_capacity_factor is not None:
         decoder_cfg = dataclasses.replace(
@@ -141,7 +240,7 @@ def run_test(
             _sync(device)
             t0 = time.perf_counter()
             with benchmarker.time("encoder"):
-                results = encoder(context)
+                results = encode(context)
             t1 = time.perf_counter()
             colors, depths = [], []
             dropped = torch.zeros((), dtype=torch.int64, device=device)

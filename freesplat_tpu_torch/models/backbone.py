@@ -4,6 +4,11 @@ Port of ``freesplat_tpu/models/backbone.py`` (timm
 ``tf_efficientnetv2_s_in21ft1k``, ``features_only``): 5 feature maps at
 strides 2/4/8/16/32 with channels (24, 48, 64, 160, 256).  Strided convs
 use flax's ``padding="SAME"`` (asymmetric (0, 1) at stride 2).
+
+``compute_dtype`` (bfloat16 for the tensor cores) is the activations'
+dtype, as in the JAX module: the input is cast to it, every conv runs in
+it, and each BatchNorm normalizes in float32 and returns it (flax's
+``BatchNorm(dtype=x.dtype)``); parameters stay float32.
 """
 from __future__ import annotations
 
@@ -11,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv
+from .layers import Conv, cast_at_use
 
 # (block_type, kernel, stride, expand, out_ch, num_blocks, se_ratio)
 EFFNETV2_S_CONFIG = (
@@ -37,7 +42,9 @@ class BatchNorm(nn.Module):
     the unbiased one, ``n / (n - 1)`` times larger, so it writes that term
     into a zeroed buffer and the running variance takes it scaled back;
     the statistics come out of the same reduction that normalizes.  In
-    ``eval()`` mode (serving) the buffers are never touched."""
+    ``eval()`` mode (serving) the buffers are never touched.  A bfloat16
+    input is normalized with float32 statistics and parameters and
+    returned in bfloat16."""
 
     def __init__(self, ch: int, use_running_average: bool):
         super().__init__()
@@ -143,10 +150,12 @@ class EfficientNetV2S(nn.Module):
     """features_only EfficientNetV2-S: NHWC in, 5 NHWC feature maps out.
 
     ``train_bn``: normalize with batch statistics (the reference's BN mode
-    at every forward, and the test-time default); else running averages."""
+    at every forward, and the test-time default); else running averages.
+    ``compute_dtype``: the activations' dtype (None: float32)."""
 
-    def __init__(self, train_bn: bool = False):
+    def __init__(self, train_bn: bool = False, compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         ura = not train_bn
         self.conv_stem = Conv(3, STEM_CH, 3, 2, "SAME", bias=False)
         self.bn_stem = BNAct(STEM_CH, ura)
@@ -162,8 +171,11 @@ class EfficientNetV2S(nn.Module):
                 self.add_module(f"stage{si}_block{bi}", block)
                 self.blocks.append((si, bi == n - 1, f"stage{si}_block{bi}"))
                 ch = out_ch
+        cast_at_use(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x = self.bn_stem(self.conv_stem(x))
         features = []
         for si, last, name in self.blocks:

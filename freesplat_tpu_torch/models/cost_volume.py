@@ -1,9 +1,14 @@
-"""Plane-sweep cost volume (average feature volume + per-plane MLP).
+"""Plane-sweep cost volume.
 
-Port of ``freesplat_tpu/models/cost_volume.py`` (``avg_mlp`` similarity,
-FreeSplat's runtime path).  The JAX ``nn.vmap`` over scenes becomes one
-batch dimension (every view of every scene), and the ``lax.map`` over
-plane chunks a loop; chunking is numerically neutral.
+Port of ``freesplat_tpu/models/cost_volume.py``: ``similarity="avg_mlp"``
+(the average warped feature and the view-averaged dot product through a
+per-(pixel, plane) MLP head; FreeSplat's runtime path) and ``"cosine"``
+(the view-averaged masked cosine similarity, no MLP; a module option that
+no config reaches).  The JAX ``nn.vmap`` over scenes becomes one batch
+dimension (every view of every scene), and the ``lax.map`` over plane
+chunks a loop; chunking is numerically neutral.  ``dtype`` is the MLP
+head's compute dtype (flax's ``dtype``); the volume is returned in
+float32.
 """
 from __future__ import annotations
 
@@ -11,7 +16,9 @@ import torch
 from torch import nn
 
 from ..ops.grid_sample import bilinear_sample
-from .layers import MLP
+from .layers import MLP, cast_at_use
+
+SIMILARITIES = ("avg_mlp", "cosine")
 
 
 def inverse_depth_planes(
@@ -25,12 +32,17 @@ def inverse_depth_planes(
     return 1.0 / inv
 
 
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+
+
 class CostVolume(nn.Module):
     """NHWC at matching resolution (input / 4).
 
     forward(cur_feats (B, h, w, c), src_feats (B, s, h, w, c), src_T_cur
     (B, s, 4, 4) current-cam -> source-cam, src_K (B, s, 4, 4) source pixel
-    intrinsics, cur_invK (B, 4, 4), min/max_depth (B,)) -> (B, h, w, D).
+    intrinsics, cur_invK (B, 4, 4), min/max_depth (B,)) -> (B, h, w, D)
+    float32.
     """
 
     # Rows (B * s * planes * pixels) sampled per chunk: ~1.5 GB of warped
@@ -38,10 +50,16 @@ class CostVolume(nn.Module):
     budget_rows = 8_000_000
 
     def __init__(self, feat_ch: int, num_depth_bins: int = 64,
-                 mlp_channels=(32, 32, 1)):
+                 mlp_channels=(32, 32, 1), dtype: torch.dtype | None = None,
+                 similarity: str = "avg_mlp"):
         super().__init__()
+        if similarity not in SIMILARITIES:
+            raise ValueError(f"similarity must be one of {SIMILARITIES}, got {similarity!r}")
         self.num_depth_bins = num_depth_bins
-        self.mlp = MLP(feat_ch + 1, mlp_channels, disable_final_activation=True)
+        self.similarity = similarity
+        if similarity == "avg_mlp":
+            self.mlp = cast_at_use(
+                MLP(feat_ch + 1, mlp_channels, disable_final_activation=True), dtype)
 
     def forward(self, cur_feats, src_feats, src_T_cur, src_K, cur_invK,
                 min_depth, max_depth, eps: float = 1e-8):
@@ -50,6 +68,7 @@ class CostVolume(nn.Module):
         d = self.num_depth_bins
         n = h * w
         dev = cur_feats.device
+        cosine = self.similarity == "cosine"
         plane_chunk = max(1, min(d, self.budget_rows // max(b * v * n, 1)))
         depths = inverse_depth_planes(d, min_depth, max_depth)  # (b, d)
 
@@ -63,6 +82,9 @@ class CostVolume(nn.Module):
         rays = torch.einsum("bij,nj->bni", cur_invK[:, :3, :3], pix)  # (b, n, 3)
         proj = torch.einsum("bvij,bvjk->bvik", src_K, src_T_cur)[:, :, :3]
         src_flat = src_feats.reshape(b * v, h, w, c)
+        if cosine:
+            # The warp is linear: warped vectors are renormalized after it.
+            cur_feats = _unit(cur_feats)
         cur = cur_feats.reshape(b, 1, 1, n, c)
 
         chunks = []
@@ -79,12 +101,17 @@ class CostVolume(nn.Module):
                 src_flat, uv.reshape(b * v, dc * n, 2)
             ).reshape(b, v, dc, n, c)
             mask = (z > 0).to(warped.dtype)
+            if cosine:
+                warped = _unit(warped)
             dot = (warped * cur).sum(-1) * mask[..., 0]  # (b, v, dc, n)
             nonzero = (dot != 0).to(warped.dtype)
             denom = nonzero.sum(1) + 1e-8  # (b, dc, n)
             dot_avg = dot.sum(1) / denom
+            if cosine:
+                chunks.append(dot_avg)  # (b, dc, n)
+                continue
             feat_avg = (warped * nonzero[..., None]).sum(1) / denom[..., None]
             combined = torch.cat([feat_avg, dot_avg[..., None]], dim=-1)
             chunks.append(self.mlp(combined)[..., 0])  # (b, dc, n)
         volume = torch.cat(chunks, dim=1)  # (b, d, n)
-        return volume.transpose(1, 2).reshape(b, h, w, d)
+        return volume.transpose(1, 2).reshape(b, h, w, d).float()

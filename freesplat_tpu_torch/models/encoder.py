@@ -1,10 +1,16 @@
 """FreeSplat encoder: posed context images -> fused 3D Gaussians.
 
-Port of ``freesplat_tpu/models/encoder.py`` (``stage="full"``): backbone
--> plane-sweep cost volume -> CVEncoder -> dense-grid DepthDecoder ->
-per-pixel Gaussians -> PTF cross-view fusion -> Gaussian head.  NHWC
-throughout; the JAX ``nn.vmap``s over scenes become a batch dimension
-(cost volume) and a loop over scenes (PTF).
+Port of ``freesplat_tpu/models/encoder.py``: backbone -> plane-sweep cost
+volume -> CVEncoder -> dense-grid DepthDecoder -> per-pixel Gaussians ->
+PTF cross-view fusion -> Gaussian head.  NHWC throughout; the JAX
+``nn.vmap``s over scenes become a batch dimension (cost volume) and a loop
+over scenes (PTF).  ``forward(context, stage)`` has the JAX stages
+("full", "match", "trunk_chunk") that the whole-scene encode
+(``evaluation/harness.py::make_chunked_encode``) composes, and
+``cfg.trunk_only``.  ``cfg.compute_dtype="bfloat16"`` runs the backbone,
+cost-volume head, CVEncoder and DepthDecoder in bfloat16 as the flax
+modules' ``dtype`` does; ``hr_skip``, PTF, the Gaussian head, the adapter
+and the rasterizer stay float32.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from ..utils.device import resolve_device
 from .adapter import GaussianAdapterCfg, build_gaussians, unproject_depth
 from .backbone import FEATURE_CHANNELS, EfficientNetV2S
 from .cost_volume import CostVolume
-from .layers import Conv
+from .layers import Conv, cast_at_use, compute_dtype_of
 from .networks import GRU, CVEncoder, DepthDecoder
 from .ptf import fuse_views
 from .types import Gaussians
@@ -38,6 +44,30 @@ class EncoderFreeSplatCfg:
     matching_dim: int = 48
     adapter: GaussianAdapterCfg = field(default_factory=GaussianAdapterCfg)
     train_bn: bool = True  # BN with batch statistics at every forward
+    compute_dtype: str = "float32"  # "bfloat16": the trunk on the tensor cores
+    # Return the per-view trunk outputs from ``forward``, without the PTF
+    # fuse and the Gaussian head.
+    trunk_only: bool = False
+
+
+@dataclass
+class OpacityMappingCfg:
+    initial: float = 0.0
+    final: float = 0.0
+    warm_up: int = 1
+
+
+def map_pdf_to_opacity(
+    pdf: torch.Tensor, global_step: int, cfg: OpacityMappingCfg | None = None
+) -> torch.Tensor:
+    """Probability density -> opacity with a warm-up-scheduled exponent
+    (reference ``encoder_freesplat.py:181-194``; its runtime path takes
+    opacities from sigmoid densities instead).  The identity at the
+    default cfg's exponent 1."""
+    cfg = cfg or OpacityMappingCfg()
+    x = cfg.initial + min(global_step / cfg.warm_up, 1.0) * (cfg.final - cfg.initial)
+    exponent = 2.0**x
+    return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
 
 
 def pose_distance_matrix(extrinsics: torch.Tensor) -> torch.Tensor:
@@ -94,11 +124,15 @@ class FuseScene(nn.Module):
 
     def forward(self, feat, coords, dens, wt, depth, extr, intr, image_shape):
         state = fuse_views(feat, coords, dens, wt, depth, extr, intr, image_shape, self.gru)
+        return self.head(state, intr[0], image_shape)
+
+    def head(self, state, intr0, image_shape):
+        """Fused buffer -> (Gaussians of every slot, scales, rotations)."""
         raw = self.to_gaussians(F.relu(state.feat))
         opacities = torch.sigmoid(raw[..., 0])
         params = build_gaussians(
             self.cfg.adapter, raw[..., 2:], state.depth,
-            state.extrinsics[:, :3, :3], intr[0], image_shape,
+            state.extrinsics[:, :3, :3], intr0, image_shape,
         )
         gaussians = Gaussians(
             means=state.coords,
@@ -115,42 +149,57 @@ class EncoderFreeSplat(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.num_depth_candidates
-        self.backbone = EfficientNetV2S(train_bn=cfg.train_bn)
+        dtype = compute_dtype_of(cfg.compute_dtype)
+        self.backbone = EfficientNetV2S(train_bn=cfg.train_bn, compute_dtype=dtype)
         if FEATURE_CHANNELS[1] != cfg.matching_dim:
-            self.match_proj = Conv(FEATURE_CHANNELS[1], cfg.matching_dim, 1)
-        self.cost_volume = CostVolume(cfg.matching_dim, num_depth_bins=d)
-        self.cv_encoder = CVEncoder(in_ch=d)
+            self.match_proj = cast_at_use(Conv(FEATURE_CHANNELS[1], cfg.matching_dim, 1), dtype)
+        self.cost_volume = CostVolume(cfg.matching_dim, num_depth_bins=d, dtype=dtype)
+        self.cv_encoder = CVEncoder(in_ch=d, compute_dtype=dtype)
         self.depth_decoder = DepthDecoder(
             in_chs=(FEATURE_CHANNELS[0], *self.cv_encoder.num_ch_outs),
             num_output_channels=1 + cfg.d_feature, near=cfg.near, far=cfg.far,
-            num_samples=d, log_planes=cfg.log_planes,
+            num_samples=d, log_planes=cfg.log_planes, compute_dtype=dtype,
         )
         self.hr_skip = Conv(3, cfg.d_feature, 7, 1, 3)
         self.fuse = FuseScene(cfg)
 
-    def trunk(self, context: dict[str, torch.Tensor]) -> dict[str, Any]:
+    def _features(self, images: torch.Tensor):
+        """(backbone feature maps of every view, matching features
+        (b, v, mh, mw, matching_dim))."""
+        b, v, h, w, _ = images.shape
+        if h % 32 or w % 32:
+            raise ValueError(f"image shape ({h}, {w}) must be divisible by 32")
+        feats = self.backbone(images.reshape(b * v, h, w, 3))
+        match_feats = feats[1]
+        if hasattr(self, "match_proj"):
+            match_feats = self.match_proj(match_feats)
+        return feats, match_feats.reshape(b, v, *match_feats.shape[1:])
+
+    def trunk(self, context: dict[str, torch.Tensor], stage: str = "full") -> dict[str, Any]:
         """Backbone -> cost volume -> CVEncoder -> DepthDecoder -> hr_skip:
-        the per-view PTF inputs (the JAX ``trunk_only`` output dict)."""
+        the per-view PTF inputs (the JAX ``trunk_only`` output dict).
+        ``stage="trunk_chunk"`` takes the source geometry and features
+        from ``context`` ("match_src" (b, v, s, mh, mw, c), "src_T_cur",
+        "src_K", "cur_invK"), computed over a whole trajectory, instead of
+        selecting sources among these views."""
         cfg = self.cfg
         images = context["image"]
         extr, intr = context["extrinsics"], context["intrinsics"]
         b, v, h, w, _ = images.shape
-        if h % 32 or w % 32:
-            raise ValueError(f"image shape ({h}, {w}) must be divisible by 32")
         hw = h * w
 
         flat = images.reshape(b * v, h, w, 3)
-        feats = self.backbone(flat)
-        match_feats = feats[1]
-        if hasattr(self, "match_proj"):
-            match_feats = self.match_proj(match_feats)
-        mh, mw = match_feats.shape[1:3]
-        match_bv = match_feats.reshape(b, v, mh, mw, -1)
+        feats, match_bv = self._features(images)
+        mh, mw = match_bv.shape[2:4]
 
-        geo = [sweep_geometry(extr[i], intr[i], cfg.num_views, (mh, mw)) for i in range(b)]
-        src_idx, src_T_cur, src_K, cur_invK = (torch.stack(x) for x in zip(*geo))
-        match_src = torch.stack([match_bv[i][src_idx[i]] for i in range(b)])
-        ns = src_idx.shape[-1]
+        if stage == "trunk_chunk":
+            match_src = context["match_src"]
+            src_T_cur, src_K, cur_invK = (context[k] for k in ("src_T_cur", "src_K", "cur_invK"))
+        else:
+            geo = [sweep_geometry(extr[i], intr[i], cfg.num_views, (mh, mw)) for i in range(b)]
+            src_idx, src_T_cur, src_K, cur_invK = (torch.stack(x) for x in zip(*geo))
+            match_src = torch.stack([match_bv[i][src_idx[i]] for i in range(b)])
+        ns = src_T_cur.shape[2]
         cost_volume = self.cost_volume(
             match_bv.reshape(b * v, mh, mw, -1),
             match_src.reshape(b * v, ns, mh, mw, -1),
@@ -187,10 +236,22 @@ class EncoderFreeSplat(nn.Module):
             },
         }
 
-    def forward(self, context: dict[str, torch.Tensor]) -> dict[str, Any]:
+    def forward(self, context: dict[str, torch.Tensor], stage: str = "full") -> dict[str, Any]:
         """context: image (b, v, h, w, 3) in [0, 1]; intrinsics (b, v, 3, 3)
-        normalized; extrinsics (b, v, 4, 4) c2w; near/far (b, v)."""
-        trunk = self.trunk(context)
+        normalized; extrinsics (b, v, 4, 4) c2w; near/far (b, v).
+
+        ``stage``: "full" the Gaussians, depths and counts; "match" only
+        {"match": (b, v, mh, mw, matching_dim)}, the plane-sweep matching
+        features; "trunk_chunk" the trunk dict of these views, with the
+        source geometry and features from ``context`` (see ``trunk``).
+        ``cfg.trunk_only`` returns the trunk dict at "full"."""
+        if stage == "match":
+            return {"match": self._features(context["image"])[1]}
+        if stage not in ("full", "trunk_chunk"):
+            raise ValueError(f"unknown stage {stage!r}")
+        trunk = self.trunk(context, stage)
+        if self.cfg.trunk_only or stage == "trunk_chunk":
+            return trunk
         extr, intr = context["extrinsics"], context["intrinsics"]
         b, v, h, w, _ = context["image"].shape
         per_scene = [

@@ -4,6 +4,12 @@ Port of ``freesplat_tpu/models/layers.py``.  Feature maps stay NHWC as in
 the JAX package; ``Conv`` permutes to an NCHW view around ``F.conv2d``
 (a channels-last view, no copy).  Module and parameter names follow the
 flax modules so ``utils/flax_bridge.py`` maps weights mechanically.
+
+Compute dtype.  ``Conv`` and ``Dense`` hold a ``compute_dtype`` (None:
+no cast): the input, kernel and bias are cast to it at use and the output
+stays in it, as flax's ``nn.Conv(dtype=...)``/``nn.Dense(dtype=...)`` do;
+parameters stay float32.  ``cast_at_use`` sets it on every such layer of
+a module, where the flax module passes its ``dtype`` down.
 """
 from __future__ import annotations
 
@@ -27,8 +33,16 @@ def _same_pad(size: tuple[int, int], kernel: int, stride: int) -> tuple[int, ...
     return (w_lo, w_hi, h_lo, h_hi)
 
 
+def _cast(dtype, x, weight, bias):
+    if dtype is None:
+        return x, weight, bias
+    return x.to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype)
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` over NHWC input; ``padding`` is an int or ``"SAME"``."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, groups=1, bias=True):
         self.same = padding == "SAME"
@@ -38,10 +52,35 @@ class Conv(nn.Conv2d):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
+        x, weight, bias = _cast(self.compute_dtype, x.permute(0, 3, 1, 2), self.weight, self.bias)
         if self.same:
             x = F.pad(x, _same_pad(x.shape[2:], self.kernel_size[0], self.stride[0]))
-        return super().forward(x).permute(0, 2, 3, 1)
+        return self._conv_forward(x, weight, bias).permute(0, 2, 3, 1)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's ``dtype``: ``compute_dtype`` (see above)."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*_cast(self.compute_dtype, x, self.weight, self.bias))
+
+
+def compute_dtype_of(name: str) -> torch.dtype | None:
+    """The cfg's ``compute_dtype`` string as a torch dtype; None for
+    float32 (no cast)."""
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {name!r}")
+    return None if name == "float32" else torch.bfloat16
+
+
+def cast_at_use(module: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """Set ``compute_dtype`` on every ``Conv`` and ``Dense`` in ``module``."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense)):
+            m.compute_dtype = dtype
+    return module
 
 
 def leaky_relu_02(x):
@@ -74,7 +113,7 @@ class MLP(nn.Module):
         self.disable_final_activation = disable_final_activation
         self.n = len(channels)
         for i, ch in enumerate(channels):
-            self.add_module(f"dense_{i}", nn.Linear(in_ch, ch))
+            self.add_module(f"dense_{i}", Dense(in_ch, ch))
             in_ch = ch
 
     def forward(self, x):
@@ -123,9 +162,10 @@ def interpolate_bilinear(
     x: torch.Tensor, out_hw: tuple[int, int], align_corners: bool = False
 ) -> torch.Tensor:
     """NHWC bilinear resize with torch's interpolate semantics, as two
-    separable two-tap matmuls (the same weights as the JAX package)."""
+    separable two-tap matmuls (the same weights as the JAX package), in
+    float32 and returned in ``x``'s dtype."""
     n, h, w, c = x.shape
     ry = torch.from_numpy(_resize_matrix(h, out_hw[0], align_corners)).to(x.device)
     rx = torch.from_numpy(_resize_matrix(w, out_hw[1], align_corners)).to(x.device)
-    out = torch.einsum("oh,nhwc->nowc", ry, x)
-    return torch.einsum("pw,nowc->nopc", rx, out)
+    out = torch.einsum("oh,nhwc->nowc", ry, x.float())
+    return torch.einsum("pw,nowc->nopc", rx, out).to(x.dtype)

@@ -2,7 +2,10 @@
 
 Port of ``freesplat_tpu/models/networks.py``.  NHWC feature maps; module
 names follow the flax modules (``right_conv_{i}{j}``, ``in_conv_{i}{j}``,
-``mlp_r_0`` ...), so weights bridge mechanically.
+``mlp_r_0`` ...), so weights bridge mechanically.  ``compute_dtype`` casts
+where the flax modules' ``dtype`` does: CVEncoder's and DepthDecoder's
+inputs and every conv; the depth softmax and ``output_s-1`` are float32.
+The GRU runs in float32, as in JAX.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .backbone import FEATURE_CHANNELS
-from .layers import BasicBlock, Conv, interpolate_bilinear, upsample2x
+from .layers import BasicBlock, Conv, cast_at_use, interpolate_bilinear, upsample2x
 
 
 class DoubleBasicBlock(nn.Module):
@@ -33,7 +36,7 @@ class CVEncoder(nn.Module):
     scale i -> 2 residual blocks.  Returns the 4 fused scales."""
 
     def __init__(self, in_ch: int, img_chs=FEATURE_CHANNELS[1:],
-                 num_ch_outs=(64, 128, 256, 384)):
+                 num_ch_outs=(64, 128, 256, 384), compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.n = len(num_ch_outs)
         for i, ch in enumerate(num_ch_outs):
@@ -42,13 +45,17 @@ class CVEncoder(nn.Module):
             self.add_module(f"conv_{i}b", BasicBlock(ch, ch))
             in_ch = ch
         self.num_ch_outs = tuple(num_ch_outs)
+        self.compute_dtype = compute_dtype
+        cast_at_use(self, compute_dtype)
 
     def forward(self, cost_volume, img_feats):
         x = cost_volume
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         outputs = []
         for i in range(self.n):
             x = getattr(self, f"ds_conv_{i}")(x)
-            x = torch.cat([x, img_feats[i]], dim=-1)
+            x = torch.cat([x, img_feats[i].to(x.dtype)], dim=-1)
             x = getattr(self, f"conv_{i}b")(getattr(self, f"conv_{i}a")(x))
             outputs.append(x)
         return outputs
@@ -65,8 +72,10 @@ class DepthDecoder(nn.Module):
 
     def __init__(self, in_chs, num_output_channels: int = 65, near: float = 0.5,
                  far: float = 15.0, num_samples: int = 64, log_planes: bool = True,
-                 num_ch_dec=(64, 64, 128, 256), max_depth: int = 4):
+                 num_ch_dec=(64, 64, 128, 256), max_depth: int = 4,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.near, self.far = near, far
         self.num_samples = num_samples
         self.log_planes = log_planes
@@ -93,6 +102,7 @@ class DepthDecoder(nn.Module):
             self.add_module(f"conv_depth_{i}b", Conv(num_samples, num_samples, 1))
         self.conv_last_a = BasicBlock(num_output_channels, 128)
         self.conv_last_b = Conv(128, num_output_channels, 1)
+        cast_at_use(self, compute_dtype)
 
     def depth_candidates(self, device) -> torch.Tensor:
         t = torch.linspace(0.0, 1.0, self.num_samples, device=device)
@@ -102,7 +112,8 @@ class DepthDecoder(nn.Module):
 
     def forward(self, input_features) -> dict[str, torch.Tensor]:
         md = self.md
-        node = {(i, 0): f for i, f in enumerate(input_features)}
+        dtype = self.compute_dtype
+        node = {(i, 0): f if dtype is None else f.to(dtype) for i, f in enumerate(input_features)}
         head_out = {}
         for j in range(1, md + 1):
             for i in range(md - j, -1, -1):
@@ -125,7 +136,7 @@ class DepthDecoder(nn.Module):
             planes = getattr(self, f"conv_depth_{i}b")(
                 getattr(self, f"conv_depth_{i}a")(head_out[i])
             )
-            planes = torch.softmax(planes, dim=-1)  # (n, h, w, D)
+            planes = torch.softmax(planes.float(), dim=-1)  # (n, h, w, D) float32
             disps = (planes * candidates).sum(-1, keepdim=True)
             outputs[f"depth_s{i}"] = torch.exp(disps) if self.log_planes else 1.0 / disps
             outputs[f"log_depth_s{i}"] = disps
@@ -136,7 +147,7 @@ class DepthDecoder(nn.Module):
         fine = interpolate_bilinear(coarse_disps, (2 * h0, 2 * w0), align_corners=True)
         outputs["depth_s-1"] = torch.exp(fine) if self.log_planes else 1.0 / fine
         x = self.conv_last_a(upsample2x(head_out[0]))
-        outputs["output_s-1"] = self.conv_last_b(x)
+        outputs["output_s-1"] = self.conv_last_b(x).float()
         outputs["depth_weights"] = interpolate_bilinear(
             depth_planes0, (2 * h0, 2 * w0), align_corners=True
         ).amax(-1, keepdim=True)

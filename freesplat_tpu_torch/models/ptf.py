@@ -11,6 +11,21 @@ Winner rule.  Slots that tie exactly on z at one pixel all qualify; the
 JAX scatter leaves their order undefined (on the CPU the last write, the
 largest slot, wins).  Here the largest slot index wins, always:
 ``scatter_reduce(..., "amax")`` over the qualifying slot ids.
+
+View i projects, z-buffers and scatters over the live prefix
+[0, (i+1)*HW) of the buffer only: no later slot is valid yet, so invalid
+tail slots would never project, win or be scattered into (the JAX
+package's bucketed path grows its buffer for the same reason, in
+buckets because XLA needs static shapes).  Without a gradient the buffer
+is updated in place; with one, each view works on a copy, as autograd
+needs.
+
+The gather of the winning slots is ``index_select``, not
+``ops/gather.py::take_rows``: unmatched pixels read slot 0, but their rows
+reach nothing (only ``fused[matched]`` is written back), so their
+gradient is exactly zero, and matched pixels read distinct slots (a slot
+projects to one pixel).  ``index_add_``'s atomics then add zeros to one
+non-zero term at most, which gives the same sum in any order.
 """
 from __future__ import annotations
 
@@ -74,17 +89,23 @@ def fuse_views(
     extrinsics 16]."""
     v, hw, c = feats.shape
     g = v * hw
+    inplace = not torch.is_grad_enabled() or not any(
+        t.requires_grad for t in (feats, coords, densities, weights, depths))
     packed = feats.new_zeros((g, c + 22))
     packed[:hw] = _pack(feats[0], densities[0], weights[0], coords[0], depths[0],
                         extrinsics[0].reshape(1, 16).expand(hw, 16))
     valid = torch.zeros(g, dtype=torch.bool, device=feats.device)
     valid[:hw] = True
     for i in range(1, v):
-        packed, valid = _fuse_one_view(
-            packed, valid, c, i, hw, feats[i], coords[i], densities[i],
+        live = (i + 1) * hw
+        p, vd = _fuse_one_view(
+            packed[:live], valid[:live], c, i, hw, feats[i], coords[i], densities[i],
             weights[i], depths[i], extrinsics[i], intrinsics[i], image_shape,
-            gru_apply, depth_thres, pe_freqs,
+            gru_apply, depth_thres, pe_freqs, inplace,
         )
+        if not inplace:  # copies: keep the buffer's tail beyond the prefix
+            packed = p if live == g else torch.cat([p, packed[live:]])
+            valid = vd if live == g else torch.cat([vd, valid[live:]])
     return PTFState(
         feat=packed[:, :c],
         density=packed[:, c : c + 1],
@@ -96,9 +117,33 @@ def fuse_views(
     )
 
 
+def fuse_views_bucketed(
+    feats: torch.Tensor,
+    coords: torch.Tensor,
+    densities: torch.Tensor,
+    weights: torch.Tensor,
+    depths: torch.Tensor,
+    extrinsics: torch.Tensor,
+    intrinsics: torch.Tensor,
+    image_shape: tuple[int, int],
+    gru_apply: Callable[..., torch.Tensor],
+    depth_thres: float = 0.1,
+    pe_freqs: int = 6,
+    buckets: tuple[int, ...] | None = None,
+) -> PTFState:
+    """``fuse_views``, under the JAX package's name for its whole-scene
+    path: ``fuse_views`` already works on the live prefix of the buffer
+    (see the module docstring), which is what the JAX path's buckets
+    approximate.  ``buckets`` (its static buffer sizes) is accepted for
+    its callers and has no effect."""
+    del buckets
+    return fuse_views(feats, coords, densities, weights, depths, extrinsics, intrinsics,
+                      image_shape, gru_apply, depth_thres, pe_freqs)
+
+
 def _fuse_one_view(
     packed, valid, c, i, hw, feat_i, coords_i, density_i, weight_i, depth_i,
-    extrinsic_i, intrinsic_i, image_shape, gru_apply, depth_thres, pe_freqs,
+    extrinsic_i, intrinsic_i, image_shape, gru_apply, depth_thres, pe_freqs, inplace,
 ):
     g = packed.shape[0]
     dev = packed.device
@@ -106,18 +151,24 @@ def _fuse_one_view(
         packed[:, c + 2 : c + 5], extrinsic_i, intrinsic_i, image_shape
     )
     proj_ok = in_bounds & valid
-    seg = torch.where(proj_ok, pix, hw)
+    slot = torch.arange(g, device=dev)
+    # Slots that do not project scatter a value that cannot win (inf, -1)
+    # to a pixel of their own: one shared sentinel address would serialize
+    # the atomics of millions of slots on the GPU.
+    spread = slot % hw
 
-    # Z-buffer: nearest projecting slot per pixel.
-    zmin = torch.full((hw + 1,), torch.inf, device=dev).scatter_reduce(
-        0, seg, torch.where(proj_ok, z, torch.inf), "amin"
-    )[:hw]
+    # Z-buffer: nearest projecting slot per pixel.  Projecting z > 0, so
+    # its float32 bits order as int32 and the min is an integer atomic.
+    zbits = torch.where(proj_ok, z, torch.inf).view(torch.int32)
+    zmin = torch.full((hw,), torch.inf, device=dev).view(torch.int32).scatter_reduce(
+        0, torch.where(proj_ok, pix, spread), zbits, "amin"
+    ).view(torch.float32)
 
     # Winner per pixel: the largest slot id among exact-z ties.
     is_winner = proj_ok & (z == zmin[torch.clamp(pix, 0, hw - 1)])
-    winner = torch.full((hw + 1,), -1, dtype=torch.long, device=dev).scatter_reduce(
-        0, torch.where(is_winner, pix, hw), torch.arange(g, device=dev), "amax"
-    )[:hw]
+    winner = torch.full((hw,), -1, dtype=torch.long, device=dev).scatter_reduce(
+        0, torch.where(is_winner, pix, spread), torch.where(is_winner, slot, -1), "amax"
+    )
     has_winner = winner >= 0
 
     # Depth-consistency match (|zbuf - pred| < max(5% pred, thres)).
@@ -151,7 +202,8 @@ def _fuse_one_view(
          / denom[..., None]).reshape(-1, 16),
     )
     # Matched pixels overwrite their winning slot (winners are distinct).
-    packed = packed.clone()
+    if not inplace:
+        packed, valid = packed.clone(), valid.clone()
     packed[winner[matched]] = fused[matched]
 
     # Unmerged pixels of view i claim their own slots.
@@ -159,6 +211,5 @@ def _fuse_one_view(
     own = _pack(feat_i, density_i, weight_i, coords_i, depth_i,
                 extrinsic_i.reshape(1, 16).expand(hw, 16))
     packed[i * hw : (i + 1) * hw] = torch.where(new[:, None], own, 0.0)
-    valid = valid.clone()
     valid[i * hw : (i + 1) * hw] = new
     return packed, valid

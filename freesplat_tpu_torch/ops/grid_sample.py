@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .gather import take_rows
+
 
 def bilinear_sample(
     features: torch.Tensor,  # (..., h, w, c)
@@ -33,13 +35,19 @@ def bilinear_sample(
     boff = (h * w) * torch.arange(nb, device=features.device).reshape(
         *batch_shape, *([1] * (coords.dim() - 1 - len(batch_shape)))
     )
+    # A tap outside the map reads some row and weighs it 0 (the JAX
+    # package reads the clamped edge pixel).  Here it reads a row of its
+    # own, spread over the map: clamped taps would pile onto the edge
+    # pixels, and in the backward one edge pixel would then sum the zero
+    # gradients of a large share of all samples, one after another.
+    spread = torch.arange(x0i.numel(), device=features.device).reshape(x0i.shape) % (h * w)
 
     def tap(xi, yi, weight):
         inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1) + boff
-        # index_select: its backward is index_add_ (atomics on the GPU),
-        # where flat[idx]'s sorts the indices first.
-        rows = flat.index_select(0, idx.reshape(-1)).reshape(*idx.shape, c)
+        idx = torch.where(inside, yi * w + xi, spread) + boff
+        # take_rows: the gradient of a source pixel that many samples read
+        # sums in a fixed order (``ops/gather.py``).
+        rows = take_rows(flat, idx.reshape(-1)).reshape(*idx.shape, c)
         return rows * (weight * inside)[..., None]
 
     return (

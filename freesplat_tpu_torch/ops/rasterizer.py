@@ -15,8 +15,10 @@ Port of ``freesplat_tpu/ops/rasterizer.py``, forward and backward.
     tensors.  On CPU tensors it runs ``composite_tiles_plain`` and
     ``composite_tiles_plain_bwd``, the same arithmetic in PyTorch, which
     are also the kernels' judges on the card.  Gradients reach the
-    Gaussians through the gather in ``build_instance_rows`` (torch's index
-    backward, a scatter-add, as XLA's outside the Pallas call).
+    Gaussians through the gather in ``build_instance_rows``
+    (``ops/gather.py::take_rows``, whose backward sums each Gaussian's
+    instances in a fixed order, as XLA's scatter-add outside the Pallas
+    call does).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from .gather import take_rows
 from .rendering import (
     ALPHA_MAX, ALPHA_MIN, TILE, TRANSMITTANCE_EPS, Screen, preprocess_gaussians,
 )
@@ -171,9 +174,9 @@ def build_instance_rows(screen: Screen, binning: TileBinning) -> torch.Tensor:
         ],
         dim=-1,
     ).float()
-    # index_select: its backward is index_add_ (atomics on the GPU), where
-    # packed[ids]'s sorts the ids first and accumulates repeats serially.
-    return packed.index_select(0, binning.sorted_ids)
+    # A Gaussian's row repeats once per tile it covers: ``take_rows`` sums
+    # their gradients in a fixed order (``ops/gather.py``).
+    return take_rows(packed, binning.sorted_ids)
 
 
 def _pixel_coords(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, torch.Tensor]:

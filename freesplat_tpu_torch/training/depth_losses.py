@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.gather import take_rows
+
 _BINOMIAL = (1.0, 2.0, 1.0)
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 
@@ -142,8 +144,10 @@ def mv_depth_loss(
     v = src_pts[..., 1] / z_safe * fy + cy
     ui = torch.clamp(torch.round(u - 0.5).long(), 0, w - 1)
     vi = torch.clamp(torch.round(v - 0.5).long(), 0, h - 1)
-    sampled = torch.gather(src_depth.reshape(b, h * w), 1,
-                           (vi * w + ui).reshape(b, h * w)).reshape(b, h, w)
+    # The same gather as torch.gather along pixels, with a gradient that
+    # sums in a fixed order (``ops/gather.py``).
+    flat = (vi * w + ui).reshape(b, h * w) + h * w * torch.arange(b, device=ui.device)[:, None]
+    sampled = take_rows(src_depth.reshape(b * h * w), flat.reshape(-1)).reshape(b, h, w)
     in_bounds = (u >= 0) & (u < w) & (v >= 0) & (v < h) & (z > 0)
     mask = in_bounds & (z < 1.05 * sampled) & (sampled > 0)
     eps = torch.full_like(z, 1e-6)

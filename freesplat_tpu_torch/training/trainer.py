@@ -13,6 +13,7 @@ optimizer in place and returns the state with the step advanced.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Mapping
@@ -60,6 +61,20 @@ def _on_device(views: Mapping[str, Any], device: torch.device,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """Inside, cuDNN runs only its deterministic algorithms and picks none
+    by timing; the flags are restored on exit.  With it, two runs of the
+    train step from one seed take the same steps, bit for bit: the
+    gathers' gradients already sum in a fixed order (``ops/gather.py``)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def make_train_step(
@@ -152,6 +167,7 @@ def make_train_step(
     return train_step
 
 
+@deterministic_cudnn()
 def fit(
     cfg: TrainCfg,
     state: dict,
@@ -170,7 +186,8 @@ def fit(
     Metrics are logged one interval late, as in the JAX package: by the
     next log point the values are on the host side of the pipeline, so
     reading them does not stall the device.  ``timings`` is passed to
-    every step (see ``make_train_step``)."""
+    every step (see ``make_train_step``).  The loop, its validation and
+    checkpoints included, runs under ``deterministic_cudnn``."""
     train_step = make_train_step(cfg, lpips)
     step = int(state["step"])
     pending: tuple[int, dict, float] | None = None  # (step, metrics, seconds)
