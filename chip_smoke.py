@@ -92,7 +92,29 @@
    free or deterministic; the
    ``segment_sum`` kernel bit-equal to its plain version on one step's
    launches, timed beside it and ``index_add_``.
-12. Prints the kernel table as one JSON line, the card line, and last
+12. The native frame decoder (``[native]``, right after the kernel
+   cases, before any ScanNet-layout scene is read): built from
+   ``freesplat_tpu_torch/native/dataloader.cpp`` into ``build/native/``,
+   or ``pil`` with the build's error and whether g++, ``jpeglib.h`` and
+   ``png.h`` are there; when it built, a 1296x968 JPEG decoded to
+   640x480 against PIL's LANCZOS (max 6/255, mean 0.5/255) and the host
+   ms a frame of the decoder and of PIL.  RealEstate10K (after Replica):
+   chunks of 360x640 JPEGs rendered by the tile rasterizer (3 train
+   scenes of 64 frames; the first scene of the 2-view evaluation index
+   with its 134 frames), then ``main +experiment=re10k/2views`` trains 4
+   steps at 256x256, D = 128 (checkpoint at step 2, a validation at step
+   3 with ``trainer.val_save_video=true``) and resumes for one
+   (``[re10k_train]``: launches by path, ``dropped`` 0 on every render,
+   both GIFs of 30 frames, the warm step's split and peak memory; the
+   forward kernel bit-equal to plain and the backward within 2e-4 scaled
+   on the first train launches, timed there; the segment sums of the
+   first train step bit-equal to plain), and ``mode=test`` with
+   ``test.save_ply=true test.save_video=true`` (``[re10k_test]``: finite
+   PSNR, SSIM, LPIPS, ``dropped`` 0, the PLY's vertices equal to the
+   valid Gaussians, both GIFs, 3 + 60 forward launches, the time split;
+   the forward kernel bit-equal to plain at a target view and a wobble
+   frame).
+13. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -946,6 +968,434 @@ def replica_run():
     return launches
 
 
+def native_phase() -> str:
+    """The native frame decoder (``freesplat_tpu_torch/native``): built
+    from its source into ``build/native/`` at first use, or the reason it
+    is not.  When it built, a ScanNet-sized 1296x968 JPEG decoded to the
+    loader's 640x480 against PIL's LANCZOS (the JAX bounds: max 6/255,
+    mean 0.5/255) and the time a frame of the decoder (a batch of 8 on its
+    thread pool), PIL's default resize and PIL's LANCZOS.  Returns the
+    decoder the ScanNet-layout paths read frames with."""
+    import shutil
+
+    from PIL import Image
+
+    from freesplat_tpu_torch import native
+
+    tools = {"g++": shutil.which("g++") is not None}
+    for header in ("jpeglib.h", "png.h"):
+        tools[header] = any((Path(d) / header).exists() for d in (
+            "/usr/include", "/usr/local/include", "/usr/include/x86_64-linux-gnu"))
+    t0 = time.perf_counter()
+    name = native.decoder_name()
+    build_s = time.perf_counter() - t0
+    if name != "native":
+        log(f"[native] decoder pil: {native.build_error()}; toolchain {tools}")
+        return name
+    rng = np.random.default_rng(9)
+    coarse = rng.uniform(0.15, 0.85, size=(61, 81, 3))
+    frame = np.repeat(np.repeat(coarse, 16, axis=0), 16, axis=1)[:968, :1296]
+    frame = (255 * np.clip(frame + 0.03 * rng.standard_normal(frame.shape), 0, 1)).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"{i}.jpg") for i in range(8)]
+        for p in paths:
+            Image.fromarray(frame).save(p, quality=95)
+        got = native.load_jpeg_batch(paths[:1], 480, 640)[0]
+        ref = np.asarray(Image.open(paths[0]).resize((640, 480), Image.LANCZOS),
+                         np.float32) / 255.0
+        err = np.abs(got - ref)
+        if not (err.max() < 6.0 / 255.0 and err.mean() < 0.5 / 255.0):
+            raise AssertionError(f"native decoder vs PIL LANCZOS: max {255 * err.max():.3f}/255, "
+                                 f"mean {255 * err.mean():.3f}/255")
+        times = {}
+        for label, fn in (("native", lambda: native.load_jpeg_batch(paths, 480, 640)),
+                          ("pil_default", lambda: [np.asarray(Image.open(p).resize((640, 480)))
+                                                   for p in paths]),
+                          ("pil_lanczos", lambda: [np.asarray(Image.open(p).resize(
+                              (640, 480), Image.LANCZOS)) for p in paths])):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            times[label] = 1e3 * (time.perf_counter() - t0) / (3 * len(paths))
+    log(f"[native] decoder native ({native.library_path().relative_to(ROOT)}, first use "
+        f"{build_s:.2f} s); toolchain {tools}; a 1296x968 JPEG to 640x480 against PIL LANCZOS: "
+        f"max {255 * err.max():.4f}/255, mean {255 * err.mean():.4f}/255; ms a frame (host, "
+        f"batches of 8): native {times['native']:.3f}, PIL default resize "
+        f"{times['pil_default']:.3f}, PIL LANCZOS {times['pil_lanczos']:.3f}")
+    return name
+
+
+RE10K_H, RE10K_W = 360, 640  # RealEstate10K's frames
+RE10K_SIDE = 256  # the re10k/2views preset's image side (passed explicitly)
+RE10K_TRAIN_SCENES, RE10K_TRAIN_FRAMES = 3, 64
+RE10K_STEPS = 4  # CLI train steps before the resume
+RE10K_VIDEO_FRAMES = 60  # two paths of 30 frames
+RE10K_INDEX = ROOT / "assets" / "evaluation_index_re10k_2views.json"
+
+
+def write_re10k_chunk(path: Path, scenes) -> None:
+    """A RealEstate10K ``.torch`` chunk of ``scenes`` ((key, frames, seed)
+    each): 360x640 JPEG frames of a fresh 4,000-Gaussian cloud each,
+    rendered by the tile rasterizer on the device along a slow forward
+    chain (2 cm and 0.2 degrees a frame), with packed cameras (normalized
+    fx, fy, cx, cy, two zeros, w2c 3x4) at a 60-degree horizontal field of
+    view."""
+    import torch
+    from PIL import Image
+
+    from freesplat_tpu_torch.data.synthetic import _random_scene
+    from freesplat_tpu_torch.ops.rasterizer import rasterize
+
+    fx = 0.5 / math.tan(math.radians(30.0))
+    intr = np.array([[fx, 0, 0.5], [0, fx * RE10K_W / RE10K_H, 0.5], [0, 0, 1]], np.float32)
+    intr_t = torch.from_numpy(intr).to(DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    chunk = []
+    for key, frames, seed in scenes:
+        scene = _random_scene(np.random.default_rng(seed), 4000, torch.device(DEVICE))
+        cameras, images = [], []
+        for i in range(frames):
+            a = math.radians(0.2) * i
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+            c2w[:3, 3] = [0.02 * i, 0.0, 0.01 * i]
+            with torch.no_grad():
+                color, _, _ = rasterize(*scene, torch.from_numpy(c2w).to(DEVICE), intr_t,
+                                        (RE10K_H, RE10K_W), bg, 0, capacity=1 << 20)
+            buf = io.BytesIO()
+            Image.fromarray((255 * color.clamp(0, 1)).to(torch.uint8).cpu().numpy()).save(
+                buf, format="JPEG", quality=90)
+            images.append(torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8))
+            w2c = np.linalg.inv(c2w)
+            cameras.append(np.concatenate([[fx, intr[1, 1], 0.5, 0.5, 0.0, 0.0],
+                                           w2c[:3].reshape(-1)]).astype(np.float32))
+        chunk.append({"key": key, "cameras": torch.from_numpy(np.stack(cameras)),
+                      "images": images})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(chunk, path)
+
+
+def re10k_chunks(root: Path) -> str:
+    """``root/train/000000.torch`` (RE10K_TRAIN_SCENES scenes of
+    RE10K_TRAIN_FRAMES frames) and ``root/test/000000.torch`` (the first
+    scene of the 2-view evaluation index with the frames it names, 134).
+    Returns the test scene's key."""
+    key, entry = next((k, v) for k, v in json.loads(RE10K_INDEX.read_text()).items() if v)
+    t0 = time.perf_counter()
+    write_re10k_chunk(root / "train" / "000000.torch",
+                      [(f"train_{i}", RE10K_TRAIN_FRAMES, 40 + i) for i in range(RE10K_TRAIN_SCENES)])
+    write_re10k_chunk(root / "test" / "000000.torch",
+                      [(key, max(entry["context"] + entry["target"]) + 1, 50)])
+    log(f"[re10k] chunks written in {time.perf_counter() - t0:.2f} s: train "
+        f"{RE10K_TRAIN_SCENES} x {RE10K_TRAIN_FRAMES} frames, test {key} (frames "
+        f"{entry['context']} context, {entry['target']} target)")
+    return key
+
+
+@contextlib.contextmanager
+def recorded_renders(fwd_calls=(0,), bwd_calls=(0,), seg_calls=()):
+    """Inside, the compositor inputs of the listed forward and backward
+    launches and the ``segment_sum`` inputs of the listed segment sums
+    (each counted from 0 inside the block) are kept, and the dropped
+    count of every ``render_views`` call of validation, the videos and
+    the harness.  Yields {"fwd": {i: args}, "bwd": {i: args}, "seg": {i:
+    args}, "dropped": [tensors]}."""
+    import torch
+    from freesplat_tpu_torch.evaluation import harness as HA
+    from freesplat_tpu_torch.evaluation import video as VI
+    from freesplat_tpu_torch.ops import gather as G
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.training import validation as V
+
+    rec = {"fwd": {}, "bwd": {}, "seg": {}, "dropped": []}
+    n = {"fwd": 0, "bwd": 0, "seg": 0}
+    own = {"fwd": R.composite_tiles_fwd, "bwd": R.composite_tiles_bwd, "seg": G.segment_sum}
+    keep = {"fwd": set(fwd_calls), "bwd": set(bwd_calls), "seg": set(seg_calls)}
+
+    def recording(kind):
+        def fn(*args):
+            if n[kind] in keep[kind]:
+                rec[kind][n[kind]] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            n[kind] += 1
+            return own[kind](*args)
+        return fn
+
+    renders = {m: m.render_views for m in (HA, VI, V)}
+
+    def counting(fn):
+        def render(*a, **kw):
+            out = fn(*a, **kw)
+            rec["dropped"].append(out.dropped.sum())
+            return out
+        return render
+
+    R.composite_tiles_fwd, R.composite_tiles_bwd = recording("fwd"), recording("bwd")
+    G.segment_sum = recording("seg")
+    for m, fn in renders.items():
+        m.render_views = counting(fn)
+    try:
+        yield rec
+    finally:
+        R.composite_tiles_fwd, R.composite_tiles_bwd = own["fwd"], own["bwd"]
+        G.segment_sum = own["seg"]
+        for m, fn in renders.items():
+            m.render_views = fn
+
+
+def re10k_view_checks(args, label, bwd_args=None):
+    """The kernels against their plain versions on RE10K launches: the
+    forward bit-equal on one forward launch's compositor inputs ``args``
+    (inst, tile_start, tile_count, tiles_x); with ``bwd_args`` (one
+    backward launch's inputs, its own cotangent last) the backward within
+    TOL_GRAD scaled.  Prints the instances, the deepest one and the
+    busiest tile.  Returns (forward error, backward error)."""
+    saved = launch_counts()
+    err, _, _, _ = compare_forward(args)
+    bwd = ""
+    bwd_err = 0.0
+    if bwd_args is not None:
+        bwd_err, scaled, _, _ = check_bwd(bwd_args[:4], *bwd_args[4:])
+        bwd = (f", backward max_err {bwd_err:.3g} (scaled {scaled:.3g}) on a launch's own "
+               f"cotangent")
+    _restore_launch_counts(saved)  # comparison launches, not the main path's
+    inst, tile_start, tile_count, _ = args
+    log(f"[{label}] kernels vs plain: forward max_err {err:.3g} (bit-equal){bwd}; "
+        f"{inst.shape[0]} instances, deepest z {float(inst[:, 9].max()):.2f}, "
+        f"{tile_start.shape[0]} tiles, busiest tile {int(tile_count.max())}")
+    return err, bwd_err
+
+
+def check_segment_sums(captured, label) -> float:
+    """The ``segment_sum`` kernel against its plain version, bit for bit,
+    on each captured launch's inputs (src, order, offsets, rows).  Logs the
+    shapes and returns the max abs error (0 when every launch is equal)."""
+    import torch
+
+    from freesplat_tpu_torch.ops import gather as G
+
+    saved = launch_counts()
+    err, longest = 0.0, 0
+    for src, order, offsets, rows in captured:
+        k = G.segment_sum(src, order, offsets, rows)
+        p = G.segment_sum_plain(src, order, offsets, rows)
+        sync()
+        if k.numel():
+            err = max(err, float((k - p).abs().max()))
+        if not torch.equal(k, p):
+            raise AssertionError(f"[{label}] segment_sum kernel vs plain at ({rows}, "
+                                 f"{tuple(src.shape)}): max abs error {err}")
+        longest = max(longest, int((offsets[1:] - offsets[:-1]).max()))
+    _restore_launch_counts(saved)  # comparison launches, not the main path's
+    shapes = sorted({(r, s.shape[0], s.shape[1]) for s, _, _, r in captured})
+    log(f"[{label}] segment_sum: the {len(captured)} launches of one train step (rows, "
+        f"entries, columns: {shapes}; longest segment {longest}) equal the plain version bit "
+        f"for bit")
+    return err
+
+
+def _restore_launch_counts(saved: dict) -> None:
+    for d in _count_dicts():
+        for k in d:
+            d[k] = saved[k]
+
+
+def re10k_train_run(root: Path):
+    """``main +experiment=re10k/2views mode=train`` at full width (256x256,
+    D = 128, LPIPS weights from LPIPS_SEED) on the chunks under ``root``:
+    RE10K_STEPS steps with a checkpoint at step 2 and a validation at step
+    3 that writes both videos, then one resumed step (step 3, validated
+    again).  Checks the launches
+    by path, the metrics, ``dropped`` on every render and the videos;
+    prints the warm step's split, the peak memory, and the kernels against
+    their plain versions on the first train launch (its own cotangent for
+    the backward), with their device times and bounds at that view, and
+    the segment sums of the first train step against theirs."""
+    from types import SimpleNamespace
+
+    import torch
+    from PIL import Image
+
+    from freesplat_tpu_torch import main as M
+    from freesplat_tpu_torch.config.config import load_config
+
+    # As in serving and training at 384x512, seeded random weights make
+    # splats larger than trained ones: at the preset's 3.0 instances a
+    # Gaussian the train steps dropped 19,544 to 99,836 instances on the
+    # H100 (PERF.md section 6), so the budget is raised.
+    args = ["+experiment=re10k/2views", f"dataset.roots=[{root}]",
+            f"dataset.image_shape=[{RE10K_SIDE},{RE10K_SIDE}]", "decoder.capacity_factor=8.0",
+            f"trainer.max_steps={RE10K_STEPS}", "checkpointing.every_n_train_steps=2",
+            "trainer.val_check_interval=3", "trainer.val_save_video=true", "trainer.log_every=1",
+            f"loss.lpips.weights_path={lpips_npz()}"]
+    cfg = load_config(args)
+    side = cfg.dataset.image_shape[0]
+    targets = 4  # the bounded sampler draws 4 targets for 2 context views
+    sums = segment_sums_per_step(cfg, 2, targets, side, side)
+    timings: dict = {}
+    own_fit = M.fit
+    M.fit = functools.partial(own_fit, timings=timings)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # the logger and validation write under outputs/local
+        try:
+            with counted_main("re10k") as run, \
+                    recorded_renders(seg_calls=range(sums)) as rec:
+                if DEVICE == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                first = run(args + [f"checkpointing.output_dir={tmp / 'ckpt'}"])
+                peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+                warm = {k: list(v) for k, v in timings.items()}
+                second = run(args + [f"checkpointing.load={tmp / 'ckpt'}",
+                                     f"checkpointing.output_dir={tmp / 'ckpt2'}"])
+                restored = run.restored
+        finally:
+            os.chdir(cwd)
+            M.fit = own_fit
+        local = tmp / "outputs" / "local"
+        metrics = [json.loads(line) for line in (local / "metrics.jsonl").read_text().splitlines()]
+        gifs = {}
+        for name in ("wobble", "interpolation"):
+            with Image.open(local / f"val_0000003_{name}.gif") as im:
+                gifs[name] = (im.n_frames, im.size)
+    runs = [(RE10K_STEPS, *first), (1, *second)]
+    for steps, n_draws, n_vals, paths, _, _ in runs:
+        want = {
+            "re10k_data": {"rasterize_fwd": 0, "rasterize_bwd": 0, "segment_sum": 0},
+            "re10k_train": {"rasterize_fwd": targets * steps, "rasterize_bwd": targets * steps,
+                            "segment_sum": sums * steps},
+            "re10k_val": {"rasterize_fwd": (targets + RE10K_VIDEO_FRAMES) * n_vals,
+                          "rasterize_bwd": 0, "segment_sum": 0},
+        }
+        got = {p: {k: v.get(k, 0) for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum")}
+               for p, v in paths.items()}
+        if DEVICE == "cuda" and (got != want or paths["re10k_train"].get("gather_rows", 0)):
+            raise AssertionError(f"re10k_train launches {paths}, want {want} ({n_draws} batches "
+                                 f"drawn, {n_vals} validations)")
+    if runs[0][2] != 1 or runs[1][2] != 1:  # each run validates at step 3
+        raise AssertionError(f"re10k_train validations {runs[0][2]}, {runs[1][2]}: want 1, 1")
+    if not restored or restored[0][:2] != (2, 3):
+        raise AssertionError(f"re10k resume restored {restored}, want step_2 holding step 3")
+    if [m["step"] for m in metrics] != [*range(RE10K_STEPS), RE10K_STEPS - 1]:
+        raise AssertionError(f"re10k_train logged steps {[m['step'] for m in metrics]}")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()) or m["dropped_instances"] != 0:
+            raise AssertionError(f"re10k_train step {m['step']}: {m}")
+    dropped = int(sum(int(d) for d in rec["dropped"]))
+    if dropped or gifs != {k: (30, (side, side)) for k in gifs}:
+        raise AssertionError(f"re10k validation: dropped {dropped}, videos {gifs}")
+    split = {k: float(np.median([1e3 * t for t in warm[k][1:]]))
+             for k in ("forward_s", "backward_s", "optimizer_s")}
+    step_ms = [1e3 * sum(x) for x in zip(warm["forward_s"], warm["backward_s"],
+                                         warm["optimizer_s"])]
+    log(f"[re10k_train] main +experiment=re10k/2views mode=train at {side}x{side}, D = "
+        f"{cfg.encoder.num_depth_candidates}, 2 context + {targets} target views: "
+        f"{RE10K_STEPS} steps then 1 resumed, walls {runs[0][5]:.2f} s and {runs[1][5]:.2f} s; "
+        f"ms per step {[round(t, 2) for t in step_ms]}, warm median "
+        f"{float(np.median(step_ms[1:])):.2f} (forward {split['forward_s']:.2f}, backward "
+        f"{split['backward_s']:.2f}, optimizer {split['optimizer_s']:.2f}); peak memory {peak} B; "
+        f"loss {[round(m['loss'], 5) for m in metrics]}; validation videos {gifs}; "
+        f"launches {runs[0][3]} then {runs[1][3]}")
+    inst, tile_start, tile_count, tiles_x = rec["fwd"][0]
+    errs = re10k_view_checks(rec["fwd"][0], "re10k_train", rec["bwd"][0])
+    if DEVICE == "cuda" and len(rec["seg"]) != sums:
+        raise AssertionError(f"re10k_train: {len(rec['seg'])} segment sums captured, want {sums}")
+    seg_err = check_segment_sums([rec["seg"][i] for i in sorted(rec["seg"])], "re10k_train")
+    binning = SimpleNamespace(tile_start=tile_start, tile_count=tile_count, dropped=0)
+    cmp = compare_tiles(inst, binning, tiles_x, seed=4)
+    timing = time_kernels(inst, binning, tiles_x, cmp, "re10k train view")
+    return _sum_paths(runs), errs, seg_err, timing
+
+
+def re10k_test_run(root: Path, key: str):
+    """``main +experiment=re10k/2views mode=test`` with the 2-view index,
+    ``test.save_ply=true test.save_video=true`` and LPIPS weights from
+    LPIPS_SEED, on the test chunk under ``root``.  Checks the metrics,
+    ``dropped`` on every render, the PLY's vertex count against the valid
+    Gaussians, both GIFs and the launches; prints the time split; holds
+    the forward kernel against plain at the first target view and the
+    first wobble frame."""
+    from PIL import Image
+
+    from freesplat_tpu_torch import main as M
+    from freesplat_tpu_torch.evaluation import harness as HA
+    from freesplat_tpu_torch.evaluation import video as VI
+    from freesplat_tpu_torch.utils.ply_export import load_ply
+
+    entry = json.loads(RE10K_INDEX.read_text())[key]
+    targets = len(entry["target"])
+    timings: dict = {}
+    own_run_test, own_save_video = HA.run_test, VI.save_video
+    HA.run_test = functools.partial(own_run_test, timings=timings)
+
+    def timed_save_video(*a, **kw):  # the GIF writing inside video_s
+        t0 = time.perf_counter()
+        own_save_video(*a, **kw)
+        timings.setdefault("gif_s", []).append(time.perf_counter() - t0)
+
+    VI.save_video = timed_save_video
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                recorded_renders(fwd_calls=(0, targets), bwd_calls=()) as rec:
+            out = Path(tmp)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            M.main(["+experiment=re10k/2views", "mode=test", f"dataset.roots=[{root}]",
+                    f"dataset.image_shape=[{RE10K_SIDE},{RE10K_SIDE}]",
+                    "test.render_capacity_factor=8.0",  # seeded weights (re10k_train_run)
+                    f"dataset.evaluation_index_path={RE10K_INDEX}", f"test.output_path={out}",
+                    "test.save_ply=true", "test.save_video=true",
+                    f"loss.lpips.weights_path={lpips_npz()}"], device=DEVICE)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            stats = json.loads((out / "stats.json").read_text())
+            (scene,) = stats["per_scene"]
+            ply = load_ply(out / key / "gaussians.ply")
+            gifs = {}
+            for name in ("wobble", "interpolation"):
+                with Image.open(out / key / f"{name}.gif") as im:
+                    gifs[name] = (im.n_frames, im.size)
+            ply_bytes = (out / key / "gaussians.ply").stat().st_size
+    finally:
+        HA.run_test, VI.save_video = own_run_test, own_save_video
+    summary = stats["summary"]
+    side = RE10K_SIDE
+    want = {"rasterize_fwd": targets + RE10K_VIDEO_FRAMES, "rasterize_bwd": 0,
+            "gather_rows": 0, "segment_sum": 0}
+    if DEVICE == "cuda" and launches != want:
+        raise AssertionError(f"re10k_test launches {launches}, want {want}")
+    if not all(math.isfinite(summary.get(k, math.nan)) for k in ("psnr", "ssim", "lpips")):
+        raise AssertionError(f"re10k_test metrics: {summary}")
+    dropped = int(sum(int(d) for d in rec["dropped"]))
+    if dropped or scene["dropped_instances"] != 0:
+        raise AssertionError(f"re10k_test dropped {dropped} (video and targets), "
+                             f"{scene['dropped_instances']} (targets)")
+    if (scene["scene"], scene["num_views"]) != (key, targets):
+        raise AssertionError(f"re10k_test scene {scene['scene']} with {scene['num_views']} views")
+    if len(ply["x"]) != scene["num_gaussians"] or not all(
+            np.isfinite(v).all() for v in ply.values()):
+        raise AssertionError(f"gaussians.ply holds {len(ply['x'])} vertices for "
+                             f"{scene['num_gaussians']} valid Gaussians")
+    if gifs != {k: (30, (side, side)) for k in gifs}:
+        raise AssertionError(f"re10k_test videos {gifs}")
+    split = {k: round(1e3 * timings[k][0], 2)
+             for k in ("encoder_s", "metrics_s", "dumps_s", "ply_s", "video_s")}
+    split["render_s"] = round(1e3 * timings["decoder_s_per_view"][0] * targets, 2)
+    log(f"[re10k_test] {key} through main +experiment=re10k/2views mode=test at {side}x{side}: "
+        f"{targets} target views, wall {wall:.2f} s; ms: encode {split['encoder_s']}, render "
+        f"{split['render_s']}, metrics {split['metrics_s']}, dumps {split['dumps_s']}, ply "
+        f"{split['ply_s']}, video {split['video_s']} ({RE10K_VIDEO_FRAMES} frames; writing the "
+        f"two GIFs {round(1e3 * sum(timings['gif_s']), 2)}); psnr "
+        f"{summary['psnr']:.3f}, ssim {summary['ssim']:.4f}, lpips {summary['lpips']:.4f}; "
+        f"num_gaussians {scene['num_gaussians']:.0f} = PLY vertices ({ply_bytes} B); "
+        f"videos {gifs}; launches {launches}")
+    errs = [re10k_view_checks(rec["fwd"][0], "re10k_test target view 0")[0],
+            re10k_view_checks(rec["fwd"][targets], "re10k_test wobble frame 0")[0]]
+    return launches, max(errs)
+
+
 def _gather_check(label, x, idx):
     """The gather kernel vs its plain version on one input: equal, NaN in
     the same places, the kernel launched once.  Returns the max abs
@@ -1081,19 +1531,23 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def cli_run():
-    """``main`` trains CLI_STEPS steps on the synthetic stream (checkpoint
-    at step 2, validation at step 3) in a temporary directory, then a
-    second ``main`` resumes from the checkpoint.  Launches are split by
-    path: data renders (each batch drawn), validation renders and the
-    train steps (the rest)."""
+@contextlib.contextmanager
+def counted_main(prefix: str):
+    """Inside, ``main``'s batch streams, validations and checkpoint
+    restores are wrapped, and ``run(argv)`` calls ``main`` once.  Launches
+    are split by path: ``<prefix>_data`` while a batch is drawn,
+    ``<prefix>_val`` inside ``validation_step``, ``<prefix>_train`` the
+    rest of the run.  A restored state is held against the checkpoint it
+    was read from (``run.restored`` lists the restores).  ``run`` returns
+    (batches drawn, validations, launches by path, what ``main`` printed,
+    wall seconds)."""
     import torch
     from freesplat_tpu_torch import main as M
     from freesplat_tpu_torch.training import checkpoint as C
     from freesplat_tpu_torch.training import validation as V
 
-    lpips_path = lpips_npz()
-    by_path = {"cli_data": {}, "cli_train": {}, "cli_val": {}}
+    data, train, val = (f"{prefix}_{p}" for p in ("data", "train", "val"))
+    by_path: dict[str, dict] = {data: {}, train: {}, val: {}}
     draws, vals, restored = [0], [0], []
 
     def add(path, before):
@@ -1110,7 +1564,7 @@ def cli_run():
             while True:
                 before = launch_counts()
                 batch = next(it, None)
-                add("cli_data", before)
+                add(data, before)
                 if batch is None:
                     return
                 draws[0] += 1
@@ -1121,7 +1575,7 @@ def cli_run():
     def counted_val(*a, **kw):
         before = launch_counts()
         out = orig_val(*a, **kw)
-        add("cli_val", before)
+        add(val, before)
         vals[0] += 1
         return out
 
@@ -1139,6 +1593,51 @@ def cli_run():
         restored.append((step, state["step"], len(saved["encoder"]), len(opt)))
         return state
 
+    def run(argv):
+        reset_launch_counts()
+        draws[0] = vals[0] = 0
+        for p in by_path.values():
+            p.clear()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            M.main(argv, device=DEVICE)
+        sync()
+        wall = time.perf_counter() - t0
+        total = launch_counts()
+        for k in total:
+            by_path[train][k] = total[k] - by_path[data].get(k, 0) - by_path[val].get(k, 0)
+        return draws[0], vals[0], {p: dict(v) for p, v in by_path.items()}, \
+            tee.buf.getvalue(), wall
+
+    run.restored = restored
+    M.make_batches, V.validation_step, M.restore_checkpoint = (
+        counted_batches, counted_val, checked_restore)
+    try:
+        yield run
+    finally:
+        M.make_batches, V.validation_step, M.restore_checkpoint = (
+            orig_batches, orig_val, orig_restore)
+
+
+def _sum_paths(runs) -> dict:
+    """Launches by path summed over ``counted_main`` runs."""
+    total: dict = {}
+    for run in runs:
+        for p, counts in run[3].items():
+            for k, v in counts.items():
+                total.setdefault(p, {}).setdefault(k, 0)
+                total[p][k] += v
+    return total
+
+
+def cli_run():
+    """``main`` trains CLI_STEPS steps on the synthetic stream (checkpoint
+    at step 2, validation at step 3) in a temporary directory, then a
+    second ``main`` resumes from the checkpoint.  Launches are split by
+    path: data renders (each batch drawn), validation renders and the
+    train steps (the rest)."""
+    lpips_path = lpips_npz()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         args = ["+experiment=scannet/2views", "dataset.name=synthetic",
@@ -1149,32 +1648,13 @@ def cli_run():
                 f"loss.lpips.weights_path={lpips_path}"]
         cwd = os.getcwd()
         os.chdir(tmp)  # the logger and validation write under outputs/local
-        M.make_batches, V.validation_step, M.restore_checkpoint = (
-            counted_batches, counted_val, checked_restore)
         try:
-            runs = []
-            for extra, steps in (([f"checkpointing.output_dir={tmp / 'ckpt'}"], CLI_STEPS),
-                                 ([f"checkpointing.load={tmp / 'ckpt'}",
-                                   f"checkpointing.output_dir={tmp / 'ckpt2'}"], 1)):
-                reset_launch_counts()
-                draws[0] = vals[0] = 0
-                for p in by_path.values():
-                    p.clear()
-                tee = _Tee(sys.stdout)
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(tee):
-                    M.main(args + extra, device=DEVICE)
-                sync()
-                wall = time.perf_counter() - t0
-                total = launch_counts()
-                for k in total:
-                    by_path["cli_train"][k] = (total[k] - by_path["cli_data"].get(k, 0)
-                                               - by_path["cli_val"].get(k, 0))
-                runs.append((steps, draws[0], vals[0], {p: dict(v) for p, v in by_path.items()},
-                             tee.buf.getvalue(), wall))
+            with counted_main("cli") as run:
+                runs = [(CLI_STEPS, *run(args + [f"checkpointing.output_dir={tmp / 'ckpt'}"])),
+                        (1, *run(args + [f"checkpointing.load={tmp / 'ckpt'}",
+                                         f"checkpointing.output_dir={tmp / 'ckpt2'}"]))]
+                restored = run.restored
         finally:
-            M.make_batches, V.validation_step, M.restore_checkpoint = (
-                orig_batches, orig_val, orig_restore)
             os.chdir(cwd)
         metrics = [json.loads(line)
                    for line in (tmp / "outputs/local/metrics.jsonl").read_text().splitlines()]
@@ -1212,23 +1692,18 @@ def cli_run():
         f"{[round(t, 2) for t in step_ms]}; loss {[round(m['loss'], 5) for m in metrics]}; "
         f"restored {restored[0][2]} tensors and {restored[0][3]} Adam states; launches "
         f"{runs[0][3]} then {runs[1][3]}")
-    total = {}
-    for run in runs:
-        for p, counts in run[3].items():
-            for k, v in counts.items():
-                total.setdefault(p, {}).setdefault(k, 0)
-                total[p][k] += v
-    return total, step_ms
+    return _sum_paths(runs), step_ms
 
 
-def segment_sums_per_step(cfg, context_views, target_views) -> int:
-    """Segment-sum launches of one train step: one for each target view's
-    instance gather, four (the bilinear taps) for each plane chunk of the
-    cost volume (``models/cost_volume.py``)."""
+def segment_sums_per_step(cfg, context_views, target_views, h=None, w=None) -> int:
+    """Segment-sum launches of one train step at ``h`` x ``w`` (default
+    H x W): one for each target view's instance gather, four (the bilinear
+    taps) for each plane chunk of the cost volume
+    (``models/cost_volume.py``)."""
     from freesplat_tpu_torch.models.cost_volume import CostVolume
 
     sources = min(cfg.encoder.num_views, context_views) - 1
-    n = (H // 4) * (W // 4)
+    n = ((h or H) // 4) * ((w or W) // 4)
     d = cfg.encoder.num_depth_candidates
     chunk = max(1, min(d, CostVolume.budget_rows // max(context_views * sources * n, 1)))
     return target_views + 4 * -(-d // chunk)
@@ -1678,15 +2153,10 @@ def determinism_run():
             holder["state"], _ = step(holder["state"], scenes[0])
     finally:
         G.segment_sum = own
+    err = check_segment_sums(captured, "determinism")
     saved = dict(G.launch_count)
-    err, ms, plain_ms, lib_ms, nbytes, longest = 0.0, 0.0, 0.0, 0.0, 0, 0
+    ms, plain_ms, lib_ms, nbytes = 0.0, 0.0, 0.0, 0
     for src, order, offsets, rows in captured:
-        k = G.segment_sum(src, order, offsets, rows)
-        p = G.segment_sum_plain(src, order, offsets, rows)
-        sync()
-        if not torch.equal(k, p):
-            raise AssertionError(f"segment_sum kernel vs plain at ({rows}, {src.shape}): max abs "
-                                 f"error {float((k - p).abs().max())}")
         index = torch.empty_like(order)
         index[order] = torch.repeat_interleave(torch.arange(rows, device=order.device),
                                                offsets[1:] - offsets[:-1])
@@ -1697,16 +2167,13 @@ def determinism_run():
         lib_ms += device_bench(lambda s, i: zeros.index_add_(0, i, s), [(src, index)], n=20) * 1e3
         n, cols = src.shape
         nbytes += n * cols * 4 + n * 8 + (rows + 1) * 8 + rows * cols * 4
-        longest = max(longest, int((offsets[1:] - offsets[:-1]).max()))
-    G.launch_count.update(saved)  # comparison and timing launches, not the main path's
+    G.launch_count.update(saved)  # timing launches, not the main path's
     ops = sum(s.numel() for s, *_ in captured)
     bound = _bound(nbytes, ops)
-    shapes = sorted({(r, s.shape[0], s.shape[1]) for s, _, _, r in captured})
-    log(f"[determinism] segment_sum: the {len(captured)} launches of one train step (rows, "
-        f"entries, columns: {shapes}; longest segment {longest}) equal the plain version bit "
-        f"for bit; a step's launches take {ms:.4f} ms (device time), plain {plain_ms:.2f} ms, "
-        f"index_add_ {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; {nbytes} B)")
-    return 0.0, (ms, plain_ms, lib_ms, *bound)
+    log(f"[determinism] segment_sum: a step's launches take {ms:.4f} ms (device time), plain "
+        f"{plain_ms:.2f} ms, index_add_ {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{nbytes} B)")
+    return err, (ms, plain_ms, lib_ms, *bound)
 
 
 def profile_window(fn, label):
@@ -1768,6 +2235,7 @@ def main(argv=None) -> int:
         log(f"[build] {k}: {cuda_build.BUILD_INFO[k]['log']}")
 
     errs = [kernel_cases()]
+    native_phase()
     bench_err, bench_t = bench_scene()
     errs.append(bench_err)
     serve_launches, serve_err = slice_run()
@@ -1780,6 +2248,11 @@ def main(argv=None) -> int:
     depth_launches, depth_bwd_err, _ = train_depth_run()
     errs.append((0.0, depth_bwd_err))
     replica_launches = replica_run()
+    with tempfile.TemporaryDirectory() as tmp:
+        key = re10k_chunks(Path(tmp))
+        re10k_launches, re10k_err, re10k_seg_err, _ = re10k_train_run(Path(tmp))
+        re10k_test_launches, re10k_test_err = re10k_test_run(Path(tmp), key)
+    errs += [re10k_err, (re10k_test_err, 0.0)]
     gather_err, gather_t = gather_phase()
     probe_launches, probe = probe_run()
     cli_launches, _ = cli_run()
@@ -1794,7 +2267,8 @@ def main(argv=None) -> int:
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     paths = {"serve": serve_launches, "train": train_launches, "train_depth": depth_launches,
              "replica": replica_launches, "probe": probe_launches, **cli_launches,
-             **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches}
+             **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches,
+             **re10k_launches, "re10k_test": re10k_test_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]
@@ -1837,7 +2311,7 @@ def main(argv=None) -> int:
         "replaces": None,
         "launches": train_launches["segment_sum"],
         "launches_by_path": {p: c.get("segment_sum", 0) for p, c in paths.items()},
-        "max_abs_err": seg_err,
+        "max_abs_err": max(seg_err, re10k_seg_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

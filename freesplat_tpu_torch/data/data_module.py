@@ -6,9 +6,10 @@ one-random-sample-per-pass view (reference ``validation_wrapper.py:7-32``).
 The encoder's batch shim hook (``data_module.py:21-36``) is left out:
 FreeSplat's shim is the identity (``encoder/encoder.py:27-29``).
 
-A copy of ``freesplat_tpu/data/data_module.py`` for map-style datasets
-(the iterable, chunk-streamed RE10K path is not ported yet).  Differences
-from the reference:
+A copy of ``freesplat_tpu/data/data_module.py``: map-style datasets
+(``__len__``/``__getitem__``: ScanNet, Replica) and iterable,
+chunk-streamed ones (``examples()``: RE10K).  Differences from the
+reference:
 
 - No worker processes: training is a single host process per device, so
   the loader runs on a background *thread* (``Prefetcher``) that overlaps
@@ -52,6 +53,19 @@ class ValidationWrapper:
         return 1
 
     def __iter__(self) -> Iterator[dict]:
+        if not hasattr(self.dataset, "__getitem__"):
+            # Iterable dataset: the next streamed example each pass, the
+            # stream restarted when it ends.
+            it = self.dataset.examples()
+            while True:
+                try:
+                    yield next(it)
+                except StopIteration:
+                    it = self.dataset.examples()
+                    try:
+                        yield next(it)
+                    except StopIteration:
+                        raise RuntimeError("validation dataset yields no examples") from None
         while True:
             idx = int(self.rng.integers(len(self.dataset)))
             yield self.dataset[idx]
@@ -105,8 +119,9 @@ class DataModule:
     """Builds per-stage batch iterators from a dataset factory.
 
     ``dataset_factory(stage)`` returns a map-style dataset (``__len__`` /
-    ``__getitem__`` -> example dict).  ``step_fn`` feeds the
-    curriculum sampler the current global step.
+    ``__getitem__`` -> example dict) or an iterable one (``examples()``
+    -> example dicts).  ``step_fn`` feeds the curriculum sampler the
+    current global step.
     """
 
     def __init__(
@@ -132,6 +147,29 @@ class DataModule:
             ):
                 dataset.view_sampler.set_step(self.step_fn())
 
+        if not hasattr(dataset, "__getitem__"):
+            # Iterable (chunk-streamed) dataset: ``examples()`` shuffles the
+            # chunk order itself.  Examples are dealt round-robin to the
+            # processes, and the curriculum step is set before each
+            # ``next()`` (the sampler runs when the generator is advanced).
+            while True:
+                buf: list[dict] = []
+                it = dataset.examples()
+                i = 0
+                while True:
+                    maybe_set_step()
+                    try:
+                        example = next(it)
+                    except StopIteration:
+                        break
+                    if i % world == rank:
+                        buf.append(example)
+                        if len(buf) == bs:
+                            yield collate(buf)
+                            buf = []
+                    i += 1
+                if not loop:
+                    return
         while True:
             order = (
                 rng.permutation(len(dataset)) if shuffle else np.arange(len(dataset))

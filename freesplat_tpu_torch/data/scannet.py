@@ -14,8 +14,10 @@ converted mm -> meters (fp16 in the reference; fp32 here), then the crop
 shim produces the training resolution + depth pyramid.  Replica shares the
 layout (test-only / zero-shot, with FVS extrapolation targets).
 
-A copy of ``freesplat_tpu/data/scannet.py`` with the PIL decode path only
-(the JAX package's native threaded loader is not ported yet).
+A copy of ``freesplat_tpu/data/scannet.py``.  Frames and depth maps are
+decoded by the threaded C++ decoder (``freesplat_tpu_torch/native``) when
+it built, else by PIL, as in JAX; unlike JAX, a decoder that built and then
+fails on a file raises instead of decoding the batch again with PIL.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from .. import native
 from .shims import apply_crop_shim
 from .view_samplers import ViewSampler
 
@@ -75,9 +78,12 @@ class DatasetScannet:
         return len(self.scenes)
 
     def _load_frames(self, path: Path, indices) -> np.ndarray:
-        """Batched frame load (PIL)."""
+        """Batched frame load: the native decoder (Lanczos) when it built,
+        PIL's default resize otherwise."""
         h, w = self.cfg.load_size
         paths = [path / "color" / f"{int(i)}.jpg" for i in indices]
+        if native.available():
+            return native.load_jpeg_batch([str(p) for p in paths], h, w)
         return np.stack(
             [
                 np.asarray(Image.open(p).resize((w, h))).astype(np.float32)
@@ -87,9 +93,12 @@ class DatasetScannet:
         )
 
     def _load_depths(self, path: Path, indices) -> np.ndarray:
-        """Batched depth load (mm -> meters, PIL)."""
+        """Batched depth load (mm -> meters): the native decoder when it
+        built, PIL otherwise (both bicubic)."""
         h, w = self.cfg.load_size
         paths = [path / "depth" / f"{int(i)}.png" for i in indices]
+        if native.available():
+            return native.load_depth_batch([str(p) for p in paths], h, w) / 1000.0
         return np.stack(
             [
                 np.asarray(Image.open(p).resize((w, h))).astype(np.float32)

@@ -1,11 +1,13 @@
-"""Data shim: rescale + crop and the depth pyramid.
+"""Data shims: rescale + crop and the depth pyramid; augmentation, patch
+and bounds shims.
 
-The crop shim of ``freesplat_tpu/data/shims.py`` (numpy and PIL only),
-what the ScanNet loader applies.  Parity target:
-``src/dataset/shims/crop_shim.py`` (LANCZOS rescale + center crop +
-intrinsics fix-up + depth pyramid ``depth_s{-1..3}``, with the 1.5% depth
-overscale at ``:75-77``).  The augmentation, patch and bounds shims (the
-last one RE10K's) are not ported yet.
+A copy of ``freesplat_tpu/data/shims.py`` (numpy and PIL only).  Parity
+targets: ``src/dataset/shims/crop_shim.py`` (LANCZOS rescale + center
+crop + intrinsics fix-up + depth pyramid ``depth_s{-1..3}``, with the 1.5%
+depth overscale at ``:75-77``), what the ScanNet and RE10K loaders apply;
+``augmentation_shim.py`` (horizontal flip with extrinsics reflection,
+disabled in the reference's configs), ``patch_shim.py`` and
+``bounds_shim.py`` (disparity-derived near/far), which no preset applies.
 
 These run on the host (numpy/PIL), matching the reference's dataloader-
 worker placement; images are NHWC float32.
@@ -110,3 +112,101 @@ def apply_crop_shim(example: dict, shape: tuple[int, int]) -> dict:
         "target": apply_crop_shim_to_views(example["target"], shape),
     }
 
+
+def apply_augmentation_shim(example: dict, rng: np.random.Generator) -> dict:
+    """Horizontal flip with extrinsics reflection (augmentation_shim.py:27-47).
+
+    Disabled by default in the reference configs; kept for parity."""
+    if rng.random() >= 0.5:
+        return example
+
+    reflect = np.diag([-1.0, 1.0, 1.0, 1.0]).astype(np.float32)
+
+    def flip_views(views: dict) -> dict:
+        out = dict(views)
+        out["image"] = views["image"][:, :, ::-1].copy()
+        intr = views["intrinsics"].copy()
+        intr[:, 0, 2] = 1.0 - intr[:, 0, 2]
+        out["intrinsics"] = intr
+        extr = views["extrinsics"].copy()
+        out["extrinsics"] = (reflect @ extr @ reflect).astype(np.float32)
+        if "depth" in views:
+            out["depth"] = views["depth"][:, :, ::-1].copy()
+        return out
+
+    return {
+        **example,
+        "context": flip_views(example["context"]),
+        "target": flip_views(example["target"]),
+    }
+
+
+def apply_patch_shim_to_views(views: dict, patch_size: int) -> dict:
+    """Center-crop so image dims divide the patch size (patch_shim.py)."""
+    v, h, w = views["image"].shape[:3]
+    h_new = (h // patch_size) * patch_size
+    w_new = (w // patch_size) * patch_size
+    row = (h - h_new) // 2
+    col = (w - w_new) // 2
+    image = views["image"][:, row : row + h_new, col : col + w_new]
+    intr = views["intrinsics"].copy()
+    intr[:, 0, 0] *= w / w_new
+    intr[:, 1, 1] *= h / h_new
+    return {**views, "image": image, "intrinsics": intr}
+
+
+def apply_patch_shim(example: dict, patch_size: int) -> dict:
+    return {
+        **example,
+        "context": apply_patch_shim_to_views(example["context"], patch_size),
+        "target": apply_patch_shim_to_views(example["target"], patch_size),
+    }
+
+
+def compute_depth_for_disparity(
+    extrinsics: np.ndarray,  # (v, 4, 4)
+    intrinsics: np.ndarray,  # (v, 3, 3) normalized
+    image_shape: tuple[int, int],
+    disparity: float,
+    delta_min: float = 1e-6,
+) -> float:
+    """Depth at which the max camera baseline subtends ``disparity`` pixels
+    (bounds_shim.py)."""
+    origins = extrinsics[:, :3, 3]
+    deltas = np.linalg.norm(origins[None] - origins[:, None], axis=-1)
+    baseline = max(deltas.max(), delta_min)
+    h, w = image_shape
+    pixel = np.array([1.0 / w, 1.0 / h], np.float32)
+    sizes = np.einsum(
+        "vij,j->vi", np.linalg.inv(intrinsics[:, :2, :2]), pixel
+    )
+    mean_pixel_size = float(sizes.mean())
+    return float(baseline / (disparity * mean_pixel_size))
+
+
+def apply_bounds_shim(
+    example: dict, near_disparity: float, far_disparity: float
+) -> dict:
+    """Disparity-derived near/far planes (bounds_shim.py — used by RE10K)."""
+    ctx = example["context"]
+    v, h, w = ctx["image"].shape[:3]
+    near = compute_depth_for_disparity(
+        ctx["extrinsics"], ctx["intrinsics"], (h, w), near_disparity
+    )
+    far = compute_depth_for_disparity(
+        ctx["extrinsics"], ctx["intrinsics"], (h, w), far_disparity
+    )
+
+    def with_bounds(views):
+        n = views["image"].shape[0]
+        return {
+            **views,
+            "near": np.full(n, near, np.float32),
+            "far": np.full(n, far, np.float32),
+        }
+
+    return {
+        **example,
+        "context": with_bounds(example["context"]),
+        "target": with_bounds(example["target"]),
+    }

@@ -1,8 +1,6 @@
 """View samplers: pick context/target frame indices per scene.
 
-The bounded and evaluation samplers of
-``freesplat_tpu/data/view_samplers.py``, copied (numpy only); the
-``arbitrary`` and ``all`` samplers are not ported yet.
+A copy of ``freesplat_tpu/data/view_samplers.py`` (numpy only).
 
 Parity targets: ``src/dataset/view_sampler/`` — ``bounded`` (curriculum
 gap schedule + random N-context chains with per-gap targets, FVT's
@@ -150,3 +148,35 @@ class ViewSamplerEvaluation:
             )
         return context, target, fvs_length
 
+
+@dataclass
+class ViewSamplerArbitraryCfg:
+    context_views: tuple[int, ...] = (0, 1)
+    target_views: tuple[int, ...] = (2,)
+
+
+class ViewSamplerArbitrary:
+    def __init__(self, cfg: ViewSamplerArbitraryCfg) -> None:
+        self.cfg = cfg
+
+    def sample(self, scene, extrinsics, intrinsics):
+        return (
+            np.asarray(self.cfg.context_views, np.int64),
+            np.asarray(self.cfg.target_views, np.int64),
+            0,
+        )
+
+
+class ViewSamplerAll:
+    def sample(self, scene, extrinsics, intrinsics):
+        n = extrinsics.shape[0]
+        idx = np.arange(n, dtype=np.int64)
+        return idx, idx, 0
+
+
+SAMPLERS = {
+    "bounded": ViewSamplerBounded,
+    "evaluation": ViewSamplerEvaluation,
+    "arbitrary": ViewSamplerArbitrary,
+    "all": ViewSamplerAll,
+}

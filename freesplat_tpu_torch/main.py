@@ -8,8 +8,8 @@ Port of ``freesplat_tpu/main.py``, with the same override surface:
 
 With no dataset on disk, ``dataset.name=synthetic`` trains on the built-in
 synthetic Gaussian scenes.  Runs on the GPU unless ``main`` is asked for
-the CPU (``device="cpu"``).  Not ported yet: the ``re10k`` dataset and
-more than one device (``trainer.devices``).
+the CPU (``device="cpu"``).  Not ported yet: more than one device
+(``trainer.devices``).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from .config.config import RootCfg, load_config
 from .data.data_module import DataLoaderStageCfg, DataModule
+from .data.re10k import DatasetRE10k, DatasetRE10kCfg
 from .data.replica import DatasetReplica
 from .data.scannet import DatasetScannet, DatasetScannetCfg
 from .data.synthetic import SyntheticCfg, synthetic_batches
@@ -52,15 +53,26 @@ def make_view_sampler(cfg: RootCfg, stage: str):
 
 
 def make_data_module(cfg: RootCfg, step_fn=None) -> DataModule:
-    """Stage-aware loaders for ``dataset.name`` scannet or replica (the
-    reference's ``data_module.py`` + DATASETS registry): both read the
+    """Stage-aware loaders routed by ``dataset.name`` (the reference's
+    ``data_module.py`` + DATASETS registry): re10k streams ``.torch``
+    chunks (``data/re10k.py``); scannet and replica read the
     directory-per-scene layout, Replica with its test-suffix strip and
     depth intrinsics (``data/replica.py``)."""
-    if cfg.dataset.name == "re10k":
-        raise NotImplementedError(f"dataset.name={cfg.dataset.name} is not ported yet")
     cls = DatasetReplica if cfg.dataset.name == "replica" else DatasetScannet
 
     def factory(stage: str):
+        if cfg.dataset.name == "re10k":
+            return DatasetRE10k(
+                DatasetRE10kCfg(
+                    roots=tuple(cfg.dataset.roots),
+                    image_shape=cfg.dataset.image_shape,
+                    near=cfg.dataset.near,
+                    far=cfg.dataset.far,
+                ),
+                stage,
+                make_view_sampler(cfg, stage),
+                seed=cfg.data_loader.seed,
+            )
         return cls(
             DatasetScannetCfg(
                 roots=tuple(cfg.dataset.roots),

@@ -4,7 +4,10 @@ Port of ``freesplat_tpu/training/validation.py::validation_step``
 (reference ``ModelWrapper.validation_step``, ``model_wrapper.py:507-652``):
 renders the target views of one validation scene, writes the context |
 ground truth | prediction grid ``val_<step>.png`` and appends a line to
-``val_metrics.txt``.
+``val_metrics.txt``; with ``save_video`` also the wobble and
+context-interpolation videos ``val_<step>_{wobble,interpolation}.gif``.
+``save_projections`` is not ported yet: it needs the encoder visualizer
+and the legacy epipolar stack.
 
 BN regime.  The JAX package validates with a fresh ``train_bn=True``
 module (batch statistics) and throws the mutated ``batch_stats`` away.  A
@@ -23,6 +26,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..evaluation.video import render_video_interpolation, render_video_wobble
 from ..models.decoder import DecoderCfg, render_views
 from ..models.encoder import EncoderFreeSplat, EncoderFreeSplatCfg
 from ..training.metrics import compute_psnr
@@ -51,9 +55,12 @@ def validation_step(
 ) -> dict[str, float]:
     """Validate the training ``encoder`` (built from ``encoder_cfg``) on
     ``batch`` (numpy arrays or tensors, batch 1); returns {"psnr": dB}."""
-    if save_video or save_projections:
+    if save_projections:
         raise NotImplementedError(
-            "validation_step: save_video / save_projections are not ported yet"
+            "validation_step: save_projections is not ported yet (it waits for "
+            "utils/encoder_visualizer.py, models/render_extras.py, utils/camera_viz.py and "
+            "the legacy epipolar stack: models/epipolar_sampler.py, geometry/epipolar.py, "
+            "geometry/pairings.py)"
         )
     device = next(encoder.parameters()).device
     context = {k: torch.as_tensor(batch["context"][k]).to(device, torch.float32)
@@ -95,4 +102,15 @@ def validation_step(
     with (out_dir / "val_metrics.txt").open("a") as f:
         scene = batch.get("scene", ["?"])[0]
         f.write(f"step {step} scene {scene} psnr {psnr:.4f}\n")
+
+    if save_video:
+        # Trajectory videos, as the reference logs during validation
+        # (model_wrapper.py:654-819: wobble + context interpolation).
+        vid_args = (
+            decoder_cfg, results["gaussians"], context["extrinsics"][0],
+            context["intrinsics"][0], float(context["near"][0, 0]),
+            float(context["far"][0, 0]), (h, w),
+        )
+        render_video_wobble(*vid_args, out_dir / f"val_{step:0>7}_wobble.mp4")
+        render_video_interpolation(*vid_args, out_dir / f"val_{step:0>7}_interpolation.mp4")
     return {"psnr": psnr}

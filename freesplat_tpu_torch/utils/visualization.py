@@ -1,17 +1,32 @@
-"""Visualization utilities: image layout, labels and depth colormaps.
+"""Visualization utilities: layout, labels, colormaps, drawing, video.
 
-What validation and the test harness use of
-``freesplat_tpu/utils/visualization.py``, copied (numpy and PIL only; the
-colormap tables are copied into ``utils/colormaps.py``, so no matplotlib).
-Parity targets: ``src/visualization/layout.py`` (hcat/vcat),
-``annotation.py`` (add_label) and ``color_map.py`` (apply_color_map).
-Images are (h, w, 3) float32 in [0, 1].  The drawing and video helpers
-are not ported yet.
+A copy of ``freesplat_tpu/utils/visualization.py`` (numpy and PIL only;
+the colormap tables are copied into ``utils/colormaps.py``, so no
+matplotlib).  Parity targets: ``src/visualization/layout.py``
+(hcat/vcat/add_border), ``annotation.py`` (add_label), ``color_map.py``
+(apply_color_map), ``drawing/{lines,points}.py`` and the depth-colormap
+helper ``model_wrapper.py:51-71``.  Images are (h, w, 3) float32 in
+[0, 1].
 """
 from __future__ import annotations
 
+from pathlib import Path
+from typing import Iterable, Sequence
+
 import numpy as np
 from PIL import Image, ImageDraw, ImageFont
+
+
+def get_distinct_color(index: int) -> tuple[float, float, float]:
+    """Deterministic well-separated label colors (reference
+    ``colors.py:30-32`` draws from a fixed hex palette; we golden-angle
+    step the hue wheel instead — unbounded index, no stored table)."""
+    import colorsys
+
+    hue = (index * 0.38196601125) % 1.0  # golden-ratio conjugate
+    sat = (0.65, 0.85)[index % 2]
+    val = (0.95, 0.75)[(index // 2) % 2]
+    return colorsys.hsv_to_rgb(hue, sat, val)
 
 
 def _to_float(image: np.ndarray) -> np.ndarray:
@@ -54,6 +69,14 @@ def vcat(*images: np.ndarray, align: str = "center", gap: int = 8,
         if i < len(images) - 1:
             padded.append(np.full((gap, w, 3), gap_color, np.float32))
     return np.concatenate(padded, axis=0)
+
+
+def add_border(image: np.ndarray, border: int = 8, color: float = 1.0) -> np.ndarray:
+    image = _to_float(image)
+    return np.pad(
+        image, ((border, border), (border, border), (0, 0)),
+        constant_values=color,
+    )
 
 
 def add_label(image: np.ndarray, label: str, font_size: int = 14) -> np.ndarray:
@@ -104,3 +127,61 @@ def depth_to_color(
     hi = far if far is not None else (finite.max() if finite.size else 1.0)
     norm = np.clip((depth - lo) / max(hi - lo, 1e-8), 0.0, 1.0)
     return apply_color_map(1.0 - norm, cmap)
+
+
+def draw_points(
+    image: np.ndarray,
+    points_xy: np.ndarray,  # (n, 2) normalized [0, 1]
+    color: Sequence[float] = (1.0, 0.0, 0.0),
+    radius: int = 2,
+) -> np.ndarray:
+    """Overlay points (drawing/points.py equivalent)."""
+    image = _to_float(image).copy()
+    h, w = image.shape[:2]
+    pil = Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8))
+    draw = ImageDraw.Draw(pil)
+    rgb = tuple(int(c * 255) for c in color)
+    for x, y in np.asarray(points_xy):
+        px, py = x * w, y * h
+        draw.ellipse(
+            (px - radius, py - radius, px + radius, py + radius), fill=rgb
+        )
+    return np.asarray(pil).astype(np.float32) / 255.0
+
+
+def draw_lines(
+    image: np.ndarray,
+    starts_xy: np.ndarray,  # (n, 2) normalized
+    ends_xy: np.ndarray,
+    color: Sequence[float] = (1.0, 0.0, 0.0),
+    width: int = 1,
+) -> np.ndarray:
+    """Overlay line segments (drawing/lines.py equivalent)."""
+    image = _to_float(image).copy()
+    h, w = image.shape[:2]
+    pil = Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8))
+    draw = ImageDraw.Draw(pil)
+    rgb = tuple(int(c * 255) for c in color)
+    for (x0, y0), (x1, y1) in zip(np.asarray(starts_xy), np.asarray(ends_xy)):
+        draw.line((x0 * w, y0 * h, x1 * w, y1 * h), fill=rgb, width=width)
+    return np.asarray(pil).astype(np.float32) / 255.0
+
+
+def save_video(frames: Iterable[np.ndarray], path, fps: int = 30) -> None:
+    """Dump frames as an animated GIF (no ffmpeg in this image).
+
+    Callers may pass reference-style ``.mp4`` names (model_wrapper logs
+    mp4 videos); PIL cannot encode mp4, so the suffix is rewritten to
+    ``.gif`` rather than crashing a training run mid-validation."""
+    path = Path(path)
+    if path.suffix.lower() not in (".gif", ".webp", ".png"):
+        path = path.with_suffix(".gif")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    pils = [
+        Image.fromarray((np.clip(_to_float(f), 0, 1) * 255).astype(np.uint8))
+        for f in frames
+    ]
+    pils[0].save(
+        path, save_all=True, append_images=pils[1:],
+        duration=int(1000 / fps), loop=0,
+    )

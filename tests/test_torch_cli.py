@@ -21,7 +21,6 @@ from freesplat_tpu.models.adapter import GaussianAdapterCfg as JAdapterCfg
 from freesplat_tpu.models.decoder import DecoderCfg as JDecoderCfg
 from freesplat_tpu.training.validation import validation_step as jax_validation_step
 from freesplat_tpu_torch import main as tmain
-from freesplat_tpu_torch.config.config import load_config
 from freesplat_tpu_torch.data import synthetic as tsyn
 from freesplat_tpu_torch.models import encoder as tenc
 from freesplat_tpu_torch.models.adapter import GaussianAdapterCfg as TAdapterCfg
@@ -191,8 +190,8 @@ def test_validation_step_matches_jax(tmp_path):
         assert enc.training
         for k, v in enc.state_dict().items():
             assert torch.equal(v, before[k]), k
-    with pytest.raises(NotImplementedError, match="save_video"):
-        validation_step(tcfg, dcfg, enc, batch, 7, output_dir=tmp_path, save_video=True)
+    with pytest.raises(NotImplementedError, match="save_projections"):
+        validation_step(tcfg, dcfg, enc, batch, 7, output_dir=tmp_path, save_projections=True)
 
 
 # ---------------------------------------------------------------------------
@@ -251,14 +250,22 @@ def write_replica_scene(root, n=12, seed=3):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """More than one device and ``re10k`` raise; ``replica`` is ported:
-    ``main`` evaluates a Replica scene with the preset's defaults and
-    writes the FVS-split stats and frames."""
+    """More than one device raises; ``re10k`` and ``replica`` are ported:
+    ``main`` evaluates the first scene of the RE10K 2-view index from a
+    chunk of 360x640 JPEGs, and a Replica scene with the preset's defaults
+    (the FVS-split stats and frames)."""
+    from tests.test_torch_re10k import INDEX, write_index_scene_chunk
+
     with pytest.raises(NotImplementedError, match="multi-device"):
         tmain.main([*SMALL, "trainer.devices=2"], device="cpu")
-    cfg = load_config(["dataset.name=re10k"])
-    with pytest.raises(NotImplementedError, match="re10k"):
-        tmain.make_batches(cfg, "train", device="cpu")
+    key = write_index_scene_chunk(tmp_path / "re10k")
+    tmain.main(["+experiment=re10k/2views", "mode=test", f"dataset.roots=[{tmp_path / 're10k'}]",
+                f"dataset.evaluation_index_path={INDEX}",
+                f"test.output_path={tmp_path / 're10k_out'}",
+                *[a for a in SMALL if not a.startswith(("dataset.name", "trainer."))]],
+               device="cpu")
+    (scene,) = json.loads((tmp_path / "re10k_out" / "stats.json").read_text())["per_scene"]
+    assert scene["scene"] == key and scene["num_views"] == 3 and np.isfinite(scene["psnr"])
 
     index = write_replica_scene(tmp_path / "replica")
     out = tmp_path / "out"

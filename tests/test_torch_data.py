@@ -103,12 +103,22 @@ def _sampler(vs):
     )
 
 
-def test_scannet_loader_matches_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("decoder", ["pil", "native"])
+def test_scannet_loader_matches_jax(tmp_path, monkeypatch, decoder):
+    """Both loaders decode with PIL (each package's native decoder turned
+    off), then both with their native decoders (built from the same
+    source with the same flags: the same bits)."""
     import freesplat_tpu.native
 
-    # The port decodes with PIL; the JAX loader's native decoder is turned
-    # off so both read the frames the same way.
-    monkeypatch.setattr(freesplat_tpu.native, "available", lambda: False)
+    from freesplat_tpu_torch import native as tnative
+
+    if decoder == "pil":
+        monkeypatch.setattr(freesplat_tpu.native, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    else:
+        assert freesplat_tpu.native.available()
+        assert tnative.available(), tnative.build_error()
+    assert tnative.decoder_name() == decoder
     _write_scannet_scene(tmp_path)
     (tmp_path / "test").symlink_to(tmp_path / "train")  # the val stage reads test/
     kw = dict(roots=(str(tmp_path),), image_shape=(32, 48), load_size=(48, 64))
@@ -128,7 +138,7 @@ def test_scannet_loader_matches_jax(tmp_path, monkeypatch):
         assert te["scene"] == je["scene"]
         for part in ("context", "target"):
             assert set(te[part]) == set(je[part])
-            for k in je[part]:  # numpy and PIL on both sides: equal arrays
+            for k in je[part]:  # the same decoder on both sides: equal arrays
                 np.testing.assert_array_equal(np.asarray(te[part][k]), np.asarray(je[part][k]),
                                               err_msg=f"{part} {k}")
     te = pairs[1][1]
@@ -137,16 +147,14 @@ def test_scannet_loader_matches_jax(tmp_path, monkeypatch):
 
 
 
-def test_replica_loader_matches_jax(tmp_path, monkeypatch):
+def test_replica_loader_matches_jax(tmp_path):
     """``DatasetReplica`` of both packages on a Replica-layout scene: the
     suffixed index key ``office0_1`` read from ``office0``, the
     extrapolation targets last with ``test_fvs``, ``depth_intrinsics``
     normalized by the depth image's own size; every array equal.  Then
     the port's CLI routing (``make_batches`` with ``dataset.name=replica``)
-    gives the same batch."""
-    import freesplat_tpu.native
-
-    monkeypatch.setattr(freesplat_tpu.native, "available", lambda: False)
+    gives the same batch.  Both packages decode with their native decoders
+    (the same bits)."""
     index = write_replica_scene(tmp_path)
     kw = dict(roots=(str(tmp_path),), image_shape=(32, 48), load_size=(48, 64))
 
@@ -162,7 +170,7 @@ def test_replica_loader_matches_jax(tmp_path, monkeypatch):
     for part in ("context", "target"):
         assert set(te[part]) == set(je[part])
         assert "depth_intrinsics" in te[part]
-        for k in je[part]:  # numpy and PIL on both sides: equal arrays
+        for k in je[part]:  # the same decoder on both sides: equal arrays
             np.testing.assert_array_equal(np.asarray(te[part][k]), np.asarray(je[part][k]),
                                           err_msg=f"{part} {k}")
     np.testing.assert_array_equal(te["target"]["index"], [2, 4, 9, 11])
