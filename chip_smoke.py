@@ -76,9 +76,10 @@
    geometry, B trunk per chunk, C1 PTF, C2 head), render ms a view,
    num_gaussians, gs_ratio, dropped and the peak memory; one forward
    launch a target view; bfloat16's warm encode beside float32's.  The
-   witness: the first scene encoded again on the card and, with the same
-   weights, on the host CPU, in both dtypes; ``depth_s-1`` held within
-   WITNESS_LIMITS (card against host, bfloat16 against float32).  The forward kernel
+   witness: the first 10 views of the first scene encoded again on the
+   card and, with the same weights, on the host CPU, in both dtypes;
+   ``depth_s-1`` held within WITNESS_LIMITS (card against host, bfloat16
+   against float32).  The forward kernel
    bit-equal to plain on a whole-scene view, with its time, bound and
    tile counts.
 10. ``main +experiment=scannet/fvt mode=test`` on a ScanNet-layout scene
@@ -114,7 +115,27 @@
    valid Gaussians, both GIFs, 3 + 60 forward launches, the time split;
    the forward kernel bit-equal to plain at a target view and a wobble
    frame).
-13. Prints the kernel table as one JSON line, the card line, and last
+13. Weights and validation's extras.  ``[weights]`` (after serving): a
+   timm-layout .pth drawn from the 774-key manifest
+   (``tests/fixtures/``) and an ``lpips``-layout .pth through
+   ``python -m freesplat_tpu_torch.scripts.convert_weights verify`` (exit
+   0, finite report); the converted backbone grafted into a
+   ``scannet/2views`` encoder (``load_backbone_npz``) serves one scene
+   through ``run_test`` twice, with LPIPS from the .npz and from the .pth
+   (equal LPIPS); a strict conversion refuses an extra key.
+   ``[lpips_leg]`` (after the depth-supervised steps):
+   ``scripts/lpips_leg.py --steps 3 --image-shape 384,512`` (4 steps,
+   MSE + 0.05 LPIPS from step 0): launches by path, ``loss_lpips`` on
+   every step, the warm step's split, the peak bytes; the backward kernel
+   within 2e-4 scaled on the first backward launch's own cotangent.
+   ``[projections]`` (after the CLI): ``main +experiment=scannet/2views``
+   for 2 steps with ``trainer.val_save_projections=true`` and a
+   validation: the five panel PNGs, the validation's and each panel's
+   ms, launches by path (8 + 3 forwards in the validation); at the first
+   orthographic projection view (256x256, fov 10 degrees) the instances
+   and ``dropped`` at the default capacity, the forward kernel bit-equal
+   to plain, its device time beside its bound.
+14. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -165,14 +186,18 @@ DEPTH_STEPS = 2  # depth-supervised fit steps
 WS_VIEWS, WS_TARGETS = 30, 4  # whole scene: context and target views
 WS_DEPTH = 128  # whole scene: depth planes
 # The card against the host CPU on shared weights (``encode_witness``):
-# depth_s-1's relative L2 over the whole-scene scene.  Read on an H100
-# (PERF.md section 6): card against host 1.40e-3 in float32 (another
+# depth_s-1's relative L2 over the witness's views.  Read on an H100 over
+# all 30 views of the scene (PERF.md section 6): card against host 1.40e-3 in float32 (another
 # seed's weights: 0.383) and 0.0676 in bfloat16; bfloat16 against float32
 # 0.108 on the card, 0.106 on the host, and 0.46 to 0.62 with a bfloat16
 # path broken in the package (running BN statistics, planes reversed).
 # Faults that move bfloat16 less (softmax or BN statistics in bfloat16:
 # 0.108 and 0.110) are held against JAX by tests/test_torch_whole_scene.py.
 WITNESS_LIMITS = {"card_vs_host_f32": 1e-2, "card_vs_host_bf16": 0.2, "card_bf16_vs_f32": 0.15}
+# The witness encodes this many of the whole scene's views (one trunk
+# chunk) on the host: host encodes of all 30 views took 216 and 278 s on
+# the H100's host (PERF.md section 6), too much of the call's time.
+WITNESS_VIEWS = 10
 FVT_STEPS = 2  # scannet/fvt fit steps
 DET_STEPS = 3  # steps of each seeded fit in the determinism check
 DET_TURNS = 2  # rounds of the four timed arms, each forward then backward
@@ -1534,7 +1559,8 @@ class _Tee(io.TextIOBase):
 @contextlib.contextmanager
 def counted_main(prefix: str):
     """Inside, ``main``'s batch streams, validations and checkpoint
-    restores are wrapped, and ``run(argv)`` calls ``main`` once.  Launches
+    restores are wrapped, and ``run(argv)`` calls ``main`` once (or
+    ``entry(argv, device=...)``, a script that calls ``main``).  Launches
     are split by path: ``<prefix>_data`` while a batch is drawn,
     ``<prefix>_val`` inside ``validation_step``, ``<prefix>_train`` the
     rest of the run.  A restored state is held against the checkpoint it
@@ -1593,7 +1619,7 @@ def counted_main(prefix: str):
         restored.append((step, state["step"], len(saved["encoder"]), len(opt)))
         return state
 
-    def run(argv):
+    def run(argv, entry=None):
         reset_launch_counts()
         draws[0] = vals[0] = 0
         for p in by_path.values():
@@ -1601,7 +1627,7 @@ def counted_main(prefix: str):
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
-            M.main(argv, device=DEVICE)
+            (entry or M.main)(argv, device=DEVICE)
         sync()
         wall = time.perf_counter() - t0
         total = launch_counts()
@@ -1782,12 +1808,13 @@ def state_digest(module) -> str:
 
 def encode_witness(ctx):
     """Card against host CPU on shared weights: ``whole_scene_bench``'s
-    encoder from its seed, in float32 and in bfloat16, encodes the scene
-    ``ctx`` with the chunked encode on the card ("card"), and a copy of
-    the same module moved to the host CPU encodes it there ("host").
-    Returns ({(where, dtype): depth_s-1 on the CPU}, {(where, dtype):
-    seconds}, the card's float32 Gaussians, the weights'
-    ``state_digest``)."""
+    encoder from its seed, in float32 and in bfloat16, encodes the first
+    WITNESS_VIEWS views of the scene ``ctx`` with the chunked encode on
+    the card ("card"), and a copy of the same module moved to the host CPU
+    encodes them there ("host").  The card also encodes the whole scene in
+    float32, for its Gaussians.  Returns ({(where, dtype): depth_s-1 on
+    the CPU}, {(where, dtype): seconds}, the card's float32 Gaussians of
+    the whole scene, the weights' ``state_digest``)."""
     import copy
 
     import torch
@@ -1796,23 +1823,26 @@ def encode_witness(ctx):
     from freesplat_tpu_torch.scripts.whole_scene_bench import bench_config
 
     depth, secs, gaussians, digest = {}, {}, None, None
-    host_ctx = {k: v.cpu() for k, v in ctx.items()}
+    sub = {k: v[:, :WITNESS_VIEWS] for k, v in ctx.items()}
+    host_sub = {k: v.cpu() for k, v in sub.items()}
     for dtype in ("float32", "bfloat16"):
         cfg = bench_config(WS_VIEWS, H, W, "unused", WS_DEPTH,
                            overrides=[f"encoder.compute_dtype={dtype}"])
         encoder = make_encoder(dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
                                device=DEVICE, seed=cfg.seed)
         digest = digest or state_digest(encoder)
-        for where, enc, c in (("card", encoder, ctx),
-                              ("host", copy.deepcopy(encoder).cpu(), host_ctx)):
+        for where, enc, c in (("card", encoder, sub),
+                              ("host", copy.deepcopy(encoder).cpu(), host_sub)):
             t0 = time.perf_counter()
             with torch.no_grad():
                 out = make_chunked_encode(enc, cfg.test.encode_view_chunk)(c)
             depth[where, dtype] = out["depth_s-1"].float().cpu()
             secs[where, dtype] = time.perf_counter() - t0
-            if (where, dtype) == ("card", "float32"):
-                gaussians = out["gaussians"]
             del enc, out
+        if dtype == "float32":
+            with torch.no_grad():
+                gaussians = make_chunked_encode(encoder, cfg.test.encode_view_chunk)(ctx)[
+                    "gaussians"]
         del encoder
     return depth, secs, gaussians, digest
 
@@ -1841,7 +1871,8 @@ def whole_scene_run():
     15 views a trunk chunk, render capacity factor 1.0; float32,
     then ``encoder.compute_dtype=bfloat16`` on the same scenes.  Then the
     encoder on the card against the same weights on the host CPU
-    (``encode_witness``) on the first scene, float32 and bfloat16; and the
+    (``encode_witness``) on the first WITNESS_VIEWS views of the first
+    scene, float32 and bfloat16; and the
     forward kernel vs plain on one target view of that scene's fused
     Gaussians.  Returns the launches of both passes and the forward
     kernel's numbers at the whole-scene view."""
@@ -1862,7 +1893,8 @@ def whole_scene_run():
     depth, secs, gaussians, digest = encode_witness(ctx)
     read = witness_readings(depth)
     d32 = depth["card", "float32"]
-    log(f"[witness] scene 0, weights {digest}: depth_s-1 relative L2 (scene; worst view) "
+    log(f"[witness] the first {WITNESS_VIEWS} views of scene 0, weights {digest}: depth_s-1 "
+        f"relative L2 (scene; worst view) "
         + ", ".join(f"{k} {v[0]:.4g}; {v[1]:.4g}" for k, v in read.items())
         + f"; card float32 depth {float(d32.min()):.4g} to {float(d32.max()):.4g}, std "
         f"{float(d32.std()):.4g}; encode s "
@@ -2176,6 +2208,335 @@ def determinism_run():
     return err, (ms, plain_ms, lib_ms, *bound)
 
 
+LEG_STEPS = 3  # lpips_leg --steps (the leg trains one step more)
+PROJ_STEPS = 2  # CLI steps of the [projections] run, validating at step 1
+PANELS = ("visualize_depth", "visualize_gaussians", "visualize_epipolar_samples",
+          "render_projections", "render_cameras")
+MANIFEST = ROOT / "tests" / "fixtures" / "timm_tf_efficientnetv2_s_manifest.json"
+
+
+def timm_state_dict(seed=1) -> dict:
+    """A timm ``tf_efficientnetv2_s`` state dict with every key and shape of
+    the 774-key manifest, drawn from ``seed`` (no pretrained file ships):
+    fan-in scaled convs, BN statistics near 1, int64 counters."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in json.loads(MANIFEST.read_text()).items():
+        if not shape:
+            sd[k] = torch.zeros((), dtype=torch.int64)
+        elif k.endswith(".weight") and len(shape) == 4:
+            sd[k] = torch.from_numpy((rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:])))
+                                     .astype(np.float32))
+        elif k.endswith("running_var"):
+            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32))
+        elif k.endswith(".weight"):
+            sd[k] = torch.from_numpy(rng.uniform(0.8, 1.2, shape).astype(np.float32))
+        else:
+            sd[k] = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32))
+    return sd
+
+
+def convert_cli(args) -> dict:
+    """``python -m freesplat_tpu_torch.scripts.convert_weights verify ...`` in a
+    process of its own; its exit code must be 0.  Returns the report."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "freesplat_tpu_torch.scripts.convert_weights",
+                          "verify", *args, "--device", DEVICE], cwd=ROOT, capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        raise AssertionError(f"convert_weights verify {args[0]} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    report = json.loads(Path(f"{args[2]}.verify.json").read_text())
+    values = ([v for s in report.get("scales", []) for v in (s["mean"], s["std"])]
+              + report.get("distances", []))
+    finite = report.get("finite", True) and all(s["finite"] for s in report.get("scales", []))
+    if not (finite and values and all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"convert_weights verify {args[0]}: report {report}")
+    log(f"[weights] convert_weights verify {args[0]}: exit 0 in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        + (f"scales {[(s['shape'][-1], round(s['mean'], 4), round(s['std'], 4)) for s in report['scales']]}"
+           if args[0] == "backbone" else f"distances {[round(d, 5) for d in report['distances']]}"))
+    return report
+
+
+def weights_phase():
+    """Weights in the reference's torch layouts: a timm-layout .pth from the
+    manifest and an ``lpips``-layout .pth (``lpips_leg.synthesize_lpips_pth``)
+    through ``convert_weights verify``; the converted backbone grafted into
+    a ``scannet/2views`` encoder (``load_backbone_npz``) serves one scene
+    through ``run_test``, scored with LPIPS read once from the .npz and
+    once from the .pth (equal metrics); a strict conversion refuses an
+    extra key.  Returns the launches of the two served runs."""
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.evaluation.harness import run_test
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.scripts.convert_weights import load_backbone_npz, load_tree_npz
+    from freesplat_tpu_torch.scripts.lpips_leg import synthesize_lpips_pth
+    from freesplat_tpu_torch.training.lpips import load_lpips_params, make_lpips
+    from freesplat_tpu_torch.utils.flax_bridge import jax_variables_to_torch
+    from freesplat_tpu_torch.utils.torch_convert import convert_efficientnetv2_s
+
+    sd = timm_state_dict()
+    extra = dict(sd, **{"blocks.0.0.mystery.weight": torch.zeros(3, 3)})
+    try:
+        convert_efficientnetv2_s(extra)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("strict conversion accepted an unmapped key")
+    if "mystery" not in refusal:
+        raise AssertionError(f"strict conversion refused another key: {refusal}")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        timm_pth, timm_npz = tmp / "effnetv2s.pth", tmp / "effnetv2s.npz"
+        lpips_pth, lpips_npz_path = tmp / "lpips.pth", tmp / "lpips.npz"
+        torch.save(sd, timm_pth)
+        synthesize_lpips_pth(lpips_pth)
+        convert_cli(["backbone", str(timm_pth), str(timm_npz)])
+        convert_cli(["lpips", str(lpips_pth), str(lpips_npz_path)])
+
+        cfg = load_config(["+experiment=scannet/2views", "mode=test",
+                           f"test.output_path={tmp / 'out'}", "test.render_capacity_factor=8.0"])
+        encoder = make_encoder(cfg.encoder, device=DEVICE, seed=cfg.seed)
+        load_backbone_npz(encoder, str(timm_npz))
+        want = jax_variables_to_torch(load_tree_npz(str(timm_npz)))
+        for k, v in encoder.backbone.state_dict().items():
+            if not torch.equal(v.cpu(), want[k]):
+                raise AssertionError(f"[weights] grafted backbone {k} differs from the file")
+        scene = make_scene(21)
+        summaries = {}
+        for form, path in (("npz", lpips_npz_path), ("pth", lpips_pth)):
+            lpips = make_lpips(load_lpips_params(str(path)), device=DEVICE)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            summaries[form] = run_test(cfg, batches=iter([scene]), state=encoder.state_dict(),
+                                       lpips=lpips, device=DEVICE)
+            wall = time.perf_counter() - t0
+            launches[form] = launch_counts()
+            views = scene["target"]["image"].shape[1]
+            if DEVICE == "cuda" and launches[form] != {"rasterize_fwd": views, "rasterize_bwd": 0,
+                                                        "gather_rows": 0, "segment_sum": 0}:
+                raise AssertionError(f"[weights] launches {launches[form]} for {views} views")
+            summary = summaries[form]
+            if not all(math.isfinite(v) for v in summary.values()) or summary["dropped_instances"]:
+                raise AssertionError(f"[weights] served scene with LPIPS from the .{form}: {summary}")
+            log(f"[weights] served scene (converted backbone, LPIPS from the .{form}): wall "
+                f"{wall:.2f} s, psnr {summary['psnr']:.4f}, ssim {summary['ssim']:.4f}, lpips "
+                f"{summary['lpips']:.6f}, gaussians {summary['num_gaussians']:.0f}, dropped "
+                f"{summary['dropped_instances']:.0f}")
+    if summaries["npz"]["lpips"] != summaries["pth"]["lpips"]:
+        raise AssertionError(f"[weights] LPIPS from the .npz {summaries['npz']['lpips']} != from "
+                             f"the .pth {summaries['pth']['lpips']}")
+    log(f"[weights] LPIPS equal from either file; strict conversion of an extra key: {refusal}")
+    return {"weights_serve": {k: launches["npz"][k] + launches["pth"][k] for k in launches["npz"]}}
+
+
+def lpips_leg_run():
+    """``scripts/lpips_leg.py --steps LEG_STEPS --image-shape 384,512`` (the
+    synthesized ``lpips``-layout .pth through the conversion CLI, then
+    ``main`` with MSE + 0.05 LPIPS from step 0): launches by path, finite
+    ``loss_lpips`` on every step, the warm step's split and the peak bytes
+    from ``torch.cuda.memory_stats``; the backward kernel held against its
+    plain version on the first backward launch's own cotangent (and the
+    forward bit-equal on its inputs)."""
+    from freesplat_tpu_torch import main as M
+    from freesplat_tpu_torch.scripts import lpips_leg
+
+    timings: dict = {}
+    own_fit = M.fit
+    M.fit = functools.partial(own_fit, timings=timings)
+    stats: dict = {}
+
+    def leg(argv, device):
+        stats.update(lpips_leg.main(argv, device=device))
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # the trainer logs under outputs/local
+        try:
+            with counted_main("lpips_leg") as run, recorded_renders() as rec:
+                draws, vals, paths, _, wall = run(
+                    ["--steps", str(LEG_STEPS), "--image-shape", f"{H},{W}", "--out",
+                     str(tmp / "leg"), "decoder.capacity_factor=8.0", "trainer.log_every=1"],
+                    entry=leg)
+        finally:
+            os.chdir(cwd)
+            M.fit = own_fit
+        metrics = [json.loads(line) for line in
+                   (tmp / "leg" / "metrics_tail.jsonl").read_text().splitlines()]
+    from freesplat_tpu_torch.config.config import load_config
+
+    steps = LEG_STEPS + 1
+    targets = 2  # the default config's synthetic_num_targets
+    sums = segment_sums_per_step(load_config(["dataset.name=synthetic"]), 2, targets)
+    # The leg caches one synthetic batch: its 2 context and 2 target views
+    # are rendered once, at the first draw.
+    want = {"lpips_leg_data": {"rasterize_fwd": 4, "rasterize_bwd": 0, "segment_sum": 0},
+            "lpips_leg_train": {"rasterize_fwd": targets * steps, "rasterize_bwd": targets * steps,
+                                "segment_sum": sums * steps}}
+    got = {p: {k: v.get(k, 0) for k in ("rasterize_fwd", "rasterize_bwd", "segment_sum")}
+           for p, v in paths.items() if p in want}
+    if DEVICE == "cuda" and (got != want or vals):
+        raise AssertionError(f"lpips_leg launches {paths}, want {want} ({draws} batches drawn, "
+                             f"{vals} validations)")
+    if [m["step"] for m in metrics] != list(range(steps)):
+        raise AssertionError(f"lpips_leg logged steps {[m['step'] for m in metrics]}")
+    for m in metrics:
+        if (not all(math.isfinite(v) for v in m.values()) or not m.get("loss_lpips")
+                or m["dropped_instances"] != 0):
+            raise AssertionError(f"lpips_leg step {m['step']}: {m}")
+    step_ms = [1e3 * sum(x) for x in zip(timings["forward_s"], timings["backward_s"],
+                                         timings["optimizer_s"])]
+    split = {k: float(np.median([1e3 * t for t in timings[k][1:]]))
+             for k in ("forward_s", "backward_s", "optimizer_s")}
+    peak = stats.get("allocated_bytes.all.peak", 0)
+    if DEVICE == "cuda" and not peak:
+        raise AssertionError("lpips_leg: no peak bytes in torch.cuda.memory_stats")
+    log(f"[lpips_leg] --steps {LEG_STEPS} --image-shape {H},{W}: {steps} steps of {targets} target "
+        f"views, wall {wall:.2f} s; ms per step {[round(t, 2) for t in step_ms]}, warm median "
+        f"{float(np.median(step_ms[1:])):.2f} (forward {split['forward_s']:.2f}, backward "
+        f"{split['backward_s']:.2f}, optimizer {split['optimizer_s']:.2f}); peak "
+        f"{peak} B (allocated_bytes.all.peak); loss_lpips "
+        f"{[round(m['loss_lpips'], 6) for m in metrics]}; launches {paths}")
+    bwd = rec["bwd"][0]
+    errs = re10k_view_checks(bwd[:4], "lpips_leg", bwd)
+    return {"lpips_leg_data": paths["lpips_leg_data"], "lpips_leg": paths["lpips_leg_train"]}, errs
+
+
+def projections_run():
+    """``main +experiment=scannet/2views`` on the tile-rendered synthetic
+    stream (8 target views) for PROJ_STEPS steps with
+    ``trainer.val_save_projections=true`` and a validation at step 1: the
+    five panels written, the validation's and each panel's ms (the
+    epipolar panel's peak memory beside it) and launches by path (the
+    validation: one forward a target view and 3 for the projections).
+    Then, at the first projection view of the validated Gaussians: the
+    rasterizer's ``dropped`` and instances at the default capacity
+    (``return_stats``, all three views; printed, not gated: validation
+    renders the projections at that capacity, as the JAX package does),
+    the forward kernel bit-equal to plain, and its device time beside its
+    bound."""
+    import torch
+    from PIL import Image
+
+    from freesplat_tpu_torch.models import render_extras as RE
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.ops.rendering import preprocess_gaussians
+    from freesplat_tpu_torch.training import validation as V
+    from freesplat_tpu_torch.utils.timing import device_bench
+
+    panel_ms: dict = {}
+    captured: dict = {}
+    own = {name: getattr(V, name) for name in (*PANELS, "validation_step")}
+
+    def timed(name):
+        def fn(*a, **kw):
+            sync()
+            if name == "visualize_epipolar_samples" and DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = own[name](*a, **kw)
+            sync()
+            panel_ms[name] = 1e3 * (time.perf_counter() - t0)
+            if name == "visualize_epipolar_samples" and DEVICE == "cuda":
+                panel_ms["epipolar_peak_bytes"] = torch.cuda.max_memory_allocated()
+            if name == "render_projections":
+                captured["gaussians"] = a[0]
+            return out
+        return fn
+
+    for name in own:
+        setattr(V, name, timed(name))
+    args = ["+experiment=scannet/2views", "dataset.name=synthetic",
+            "dataset.synthetic_renderer=tile", "dataset.synthetic_num_targets=8",
+            "decoder.capacity_factor=8.0", f"dataset.image_shape=[{H},{W}]",
+            f"trainer.max_steps={PROJ_STEPS}", "trainer.val_check_interval=1",
+            "trainer.val_save_projections=true", "trainer.log_every=1",
+            f"loss.lpips.weights_path={lpips_npz()}"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            with counted_main("proj") as run:
+                draws, vals, paths, _, wall = run(
+                    args + [f"checkpointing.output_dir={tmp / 'ckpt'}"])
+        finally:
+            os.chdir(cwd)
+            for name, fn in own.items():
+                setattr(V, name, fn)
+        local = tmp / "outputs" / "local"
+        pngs = {s: (local / f"val_0000001{s}.png").exists() for s in
+                ("", "_depth", "_gaussians", "_epipolar", "_projections", "_cameras")}
+        sizes = {}
+        for suffix in (s for s in pngs if pngs[s]):
+            with Image.open(local / f"val_0000001{suffix}.png") as im:
+                sizes[suffix] = im.size
+    if not all(pngs.values()):
+        raise AssertionError(f"[projections] PNGs missing: {pngs}")
+    want = {"proj_data": {"rasterize_fwd": 10 * draws, "rasterize_bwd": 0},
+            "proj_train": {"rasterize_fwd": 8 * PROJ_STEPS, "rasterize_bwd": 8 * PROJ_STEPS},
+            "proj_val": {"rasterize_fwd": 8 + 3, "rasterize_bwd": 0}}
+    got = {p: {k: v.get(k, 0) for k in ("rasterize_fwd", "rasterize_bwd")} for p, v in paths.items()}
+    if DEVICE == "cuda" and (got != want or vals != 1):
+        raise AssertionError(f"[projections] launches {got}, want {want} ({draws} batches drawn, "
+                             f"{vals} validations)")
+    log(f"[projections] main +experiment=scannet/2views, {PROJ_STEPS} steps, "
+        f"trainer.val_save_projections=true: wall {wall:.2f} s; validation "
+        f"{panel_ms['validation_step']:.2f} ms, of which panels ms: depth "
+        f"{panel_ms['visualize_depth']:.2f}, gaussians {panel_ms['visualize_gaussians']:.2f}, "
+        f"epipolar {panel_ms['visualize_epipolar_samples']:.2f} (peak "
+        f"{panel_ms.get('epipolar_peak_bytes', 0)} B), projections "
+        f"{panel_ms['render_projections']:.2f}, cameras {panel_ms['render_cameras']:.2f}; PNG sizes "
+        f"{sizes}; launches {paths}")
+
+    g = captured["gaussians"]
+    n = g.means.shape[0]
+    capacity = R.render_capacity(n, 3.0)
+    views = RE.projection_views(g.means)
+    background = torch.zeros(3, device=g.means.device)
+    saved = launch_counts()
+    stats = []
+    with torch.no_grad():
+        for extr, width, height, _ in views:
+            e, k = RE.orthographic_camera(extr, width, height, 10.0)
+            *_, st = R.rasterize(g.means, g.covariances, g.harmonics, g.masked_opacities(), e, k,
+                                 (256, 256), background, 0, return_stats=True)
+            stats.append((int(st["num_instances"]), int(st["dropped"])))
+        e, k = RE.orthographic_camera(*views[0][:3], 10.0)
+        screen = preprocess_gaussians(g.means, g.covariances, g.harmonics, g.masked_opacities(),
+                                      e, k, (256, 256), 0)
+        binning = R.bin_gaussians(screen, (256, 256), capacity)
+        inst = R.build_instance_rows(screen, binning)
+    fwd_args = (inst, binning.tile_start, binning.tile_count, 256 // 16)
+    err, pairs, _, plain_ms = compare_forward(fwd_args)
+    ms = device_bench(R.composite_tiles_fwd, [fwd_args], n=20) * 1e3
+    _restore_launch_counts(saved)  # comparison launches, not the main path's
+    k_rows = inst.shape[0]
+    num_tiles = binning.tile_start.shape[0]
+    evaluated, blended, stopped = pairs
+    bound = _bound(k_rows * 40 + num_tiles * 8 + num_tiles * 256 * (5 + 1) * 4,
+                   blended * FLOPS_PER_PAIR + stopped * FLOPS_PER_PAIR_STOP
+                   + (evaluated - blended - stopped) * FLOPS_PER_PAIR_CUT)
+    count = binning.tile_count.long()
+    log(f"[projections] the 3 projection views of {n} Gaussians at 256x256, capacity {capacity} "
+        f"(factor 3.0): (instances, dropped) {stats}; view 0 (looking down x): forward kernel vs "
+        f"plain max_err {err} (walk equal); {k_rows} instance rows, {num_tiles} tiles, instances "
+        f"a tile max {int(count.max())} mean {float(count.float().mean()):.1f}, "
+        f"{int((count >= R.MAX_TILE_INSTANCES).sum())} at the {R.MAX_TILE_INSTANCES} cap; deepest z "
+        f"{float(inst[:, 9].max()):.2f}")
+    log(f"[time] projection view: forward kernel {ms:.4f} ms (device time), plain {plain_ms:.2f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}; {evaluated} pairs evaluated, {blended} blended, "
+        f"{stopped} terminating)")
+    return {"proj_data": paths["proj_data"], "proj_train": paths["proj_train"],
+            "proj_val": paths["proj_val"]}, err, (ms, plain_ms, *bound)
+
+
 def profile_window(fn, label):
     """torch.profiler over one warm call of ``fn``: the device's busy share
     of the host wall time and the top kernels by device time."""
@@ -2240,6 +2601,7 @@ def main(argv=None) -> int:
     errs.append(bench_err)
     serve_launches, serve_err = slice_run()
     errs.append(serve_err)
+    weights_launches = weights_phase()
     ws_launches, ws_err, ws_t = whole_scene_run()
     errs.append((ws_err, 0.0))
     fvt_cli_launches = fvt_cli_run()
@@ -2247,6 +2609,8 @@ def main(argv=None) -> int:
     errs.append(train_err)
     depth_launches, depth_bwd_err, _ = train_depth_run()
     errs.append((0.0, depth_bwd_err))
+    leg_launches, leg_err = lpips_leg_run()
+    errs.append(leg_err)
     replica_launches = replica_run()
     with tempfile.TemporaryDirectory() as tmp:
         key = re10k_chunks(Path(tmp))
@@ -2256,6 +2620,8 @@ def main(argv=None) -> int:
     gather_err, gather_t = gather_phase()
     probe_launches, probe = probe_run()
     cli_launches, _ = cli_run()
+    proj_launches, proj_err, proj_t = projections_run()
+    errs.append((proj_err, 0.0))
     fvt_train_launches = fvt_train_run()
     seg_err, seg_t = determinism_run()
     for k, (ms, plain_ms, bound_ms, bound_by) in bench_t.items():
@@ -2265,10 +2631,14 @@ def main(argv=None) -> int:
     ms, plain_ms, bound_ms, bound_by = ws_t
     log(f"[whole_scene] rasterize_fwd at a whole-scene view: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    ms, plain_ms, bound_ms, bound_by = proj_t
+    log(f"[projections] rasterize_fwd at a projection view: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     paths = {"serve": serve_launches, "train": train_launches, "train_depth": depth_launches,
              "replica": replica_launches, "probe": probe_launches, **cli_launches,
              **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches,
-             **re10k_launches, "re10k_test": re10k_test_launches}
+             **re10k_launches, "re10k_test": re10k_test_launches, **weights_launches,
+             **leg_launches, **proj_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]

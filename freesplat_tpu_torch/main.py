@@ -209,9 +209,9 @@ def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
 
 
 def _load_lpips(cfg: RootCfg, device: str | torch.device = "cuda"):
-    """An LPIPS module from ``loss.lpips.weights_path`` (.npz, flax layout),
-    or None: no pretrained VGG weights ship, and without them the loss is
-    MSE only, with a note."""
+    """An LPIPS module from ``loss.lpips.weights_path`` (a keypath .npz in
+    the flax layout, or an ``lpips``-package .pth), or None: no pretrained
+    VGG weights ship, and without them the loss is MSE only, with a note."""
     lp = cfg.loss.lpips
     if lp is None or lp.weight == 0:
         return None

@@ -6,8 +6,9 @@ squared difference, 1x1 linear heads, spatial mean, summed over layers.
 Inputs in [0, 1] are shifted and scaled by the ``lpips`` package's
 constants.  Modules are named as in flax (``vgg.conv{b}_{c}``, ``lin{l}``),
 so ``utils/flax_bridge.py`` maps a flax LPIPS tree strictly.  No
-pretrained weights ship with the repository; ``.npz`` files in the JAX
-package's layout load with ``load_lpips_params``.
+pretrained weights ship with the repository; ``load_lpips_params`` reads
+``.npz`` files in the JAX package's layout and ``lpips``-package ``.pth``
+state dicts (through ``utils/torch_convert.py``).
 """
 from __future__ import annotations
 
@@ -106,12 +107,14 @@ def save_lpips_params(params: Mapping[str, Any], path: str) -> None:
 
 
 def load_lpips_params(path: str) -> dict:
-    """Load LPIPS variables written by ``save_lpips_params`` (either
-    package's) as a nested dict of numpy arrays."""
+    """Load LPIPS variables as a nested dict of numpy arrays: a keypath
+    ``.npz`` written by ``save_lpips_params`` (either package's), or a
+    torch state dict of the ``lpips`` package or torchvision, converted
+    strictly by ``utils/torch_convert.py::convert_lpips_vgg``."""
     if not str(path).endswith(".npz"):
-        raise NotImplementedError(
-            f"load_lpips_params: only .npz files are read by the port, got {path}"
-        )
+        from ..utils.torch_convert import convert_lpips_vgg
+
+        return convert_lpips_vgg(torch.load(path, map_location="cpu", weights_only=True))
     data = np.load(path)
     tree: dict = {}
     for key in data.files:

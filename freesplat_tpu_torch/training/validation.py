@@ -5,9 +5,13 @@ Port of ``freesplat_tpu/training/validation.py::validation_step``
 renders the target views of one validation scene, writes the context |
 ground truth | prediction grid ``val_<step>.png`` and appends a line to
 ``val_metrics.txt``; with ``save_video`` also the wobble and
-context-interpolation videos ``val_<step>_{wobble,interpolation}.gif``.
-``save_projections`` is not ported yet: it needs the encoder visualizer
-and the legacy epipolar stack.
+context-interpolation videos ``val_<step>_{wobble,interpolation}.gif``;
+with ``save_projections`` the encoder panels
+``val_<step>_{depth,gaussians,epipolar}.png``
+(``utils/encoder_visualizer.py``), three orthographic projections of
+scene 0's Gaussians ``val_<step>_projections.png``
+(``models/render_extras.py``, through the forward kernel on the card) and
+the camera frusta ``val_<step>_cameras.png`` (``utils/camera_viz.py``).
 
 BN regime.  The JAX package validates with a fresh ``train_bn=True``
 module (batch statistics) and throws the mutated ``batch_stats`` away.  A
@@ -29,7 +33,15 @@ import torch
 from ..evaluation.video import render_video_interpolation, render_video_wobble
 from ..models.decoder import DecoderCfg, render_views
 from ..models.encoder import EncoderFreeSplat, EncoderFreeSplatCfg
+from ..models.render_extras import render_projections
+from ..models.types import Gaussians
 from ..training.metrics import compute_psnr
+from ..utils.camera_viz import render_cameras
+from ..utils.encoder_visualizer import (
+    visualize_depth,
+    visualize_epipolar_samples,
+    visualize_gaussians,
+)
 from ..utils.visualization import add_label, hcat, vcat
 
 _VIEW_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
@@ -55,13 +67,6 @@ def validation_step(
 ) -> dict[str, float]:
     """Validate the training ``encoder`` (built from ``encoder_cfg``) on
     ``batch`` (numpy arrays or tensors, batch 1); returns {"psnr": dB}."""
-    if save_projections:
-        raise NotImplementedError(
-            "validation_step: save_projections is not ported yet (it waits for "
-            "utils/encoder_visualizer.py, models/render_extras.py, utils/camera_viz.py and "
-            "the legacy epipolar stack: models/epipolar_sampler.py, geometry/epipolar.py, "
-            "geometry/pairings.py)"
-        )
     device = next(encoder.parameters()).device
     context = {k: torch.as_tensor(batch["context"][k]).to(device, torch.float32)
                for k in _VIEW_KEYS}
@@ -96,12 +101,36 @@ def validation_step(
     out_dir.mkdir(parents=True, exist_ok=True)
     from PIL import Image
 
-    Image.fromarray((np.clip(grid, 0, 1) * 255).astype(np.uint8)).save(
-        out_dir / f"val_{step:0>7}.png"
-    )
+    def save(image: np.ndarray, suffix: str = "") -> None:
+        Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8)).save(
+            out_dir / f"val_{step:0>7}{suffix}.png"
+        )
+
+    save(grid)
     with (out_dir / "val_metrics.txt").open("a") as f:
         scene = batch.get("scene", ["?"])[0]
         f.write(f"step {step} scene {scene} psnr {psnr:.4f}\n")
+
+    if save_projections:
+        # Encoder panels (reference encoder_visualizer_epipolar.py:177-275):
+        # depth/disparity, the Gaussians' opacity/color/covariance, and
+        # epipolar samples.
+        g = results["gaussians"]
+        save(visualize_depth(context, results["depth_s-1"]), "_depth")
+        save(visualize_gaussians(context["image"], g.opacities, g.covariances,
+                                 g.harmonics[..., 0] * 0.28209479177387814 + 0.5), "_gaussians")
+        save(visualize_epipolar_samples(context, seed=step), "_epipolar")
+        # 3D validation views: axis-aligned orthographic projections of the
+        # predicted Gaussians (reference validation_in_3d.py via
+        # model_wrapper.py:591-607).
+        g0 = Gaussians(*(None if x is None else x[0] for x in g))
+        with torch.no_grad():
+            projections = render_projections(g0, resolution=256).cpu().numpy()
+        save(hcat(*[add_label(projections[i], f"{'XYZ'[(i + 1) % 3]}{'XYZ'[(i + 2) % 3]} "
+                              "Projection") for i in range(3)]), "_projections")
+        # Camera frusta (reference render_cameras, validation_in_3d.py:
+        # 92-121: context white, targets red).
+        save(hcat(*list(render_cameras(batch, resolution=256))), "_cameras")
 
     if save_video:
         # Trajectory videos, as the reference logs during validation

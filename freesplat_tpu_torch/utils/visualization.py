@@ -29,6 +29,13 @@ def get_distinct_color(index: int) -> tuple[float, float, float]:
     return colorsys.hsv_to_rgb(hue, sat, val)
 
 
+def as_numpy(x) -> np.ndarray:
+    """A tensor (any device) or array-like as a numpy array."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def _to_float(image: np.ndarray) -> np.ndarray:
     image = np.asarray(image)
     if image.dtype == np.uint8:

@@ -32,6 +32,7 @@ from freesplat_tpu_torch.training.validation import validation_step
 from freesplat_tpu_torch.utils.flax_bridge import load_flax_variables
 from tests.test_torch_encoder import fill_variables
 from tests.test_torch_slice import make_scene
+from tests.test_torch_visualizers import jit_jax_panels
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,17 +157,36 @@ def test_resume_equals_continue(tmp_path):
 # Validation.
 
 
-def test_validation_step_matches_jax(tmp_path):
+# save_projections' panels against JAX's, as written (uint8): (largest
+# difference, share of values that differ).  The cameras are drawn from the
+# batch alone and equal.  The depth and Gaussian panels color the encoder's
+# outputs, which batch-statistics BN at 64x64 moves by ~1e-4: a value on
+# a colormap row's edge moves one row, up to 4 levels of turbo or inferno
+# (measured 3 and 2, on 0.017 % and 0.020 % of the values).  The epipolar
+# samples sit ~1e-7 apart (measured 1 on 0.002 %), and the projections go
+# through the tile compositor on each side (measured 1 on 0.08 %).
+PANEL_TOLERANCE = {"cameras": (0, 0.0), "depth": (4, 1e-3), "gaussians": (4, 1e-3),
+                   "epipolar": (1, 1e-3), "projections": (1, 5e-3)}
+
+
+def test_validation_step_matches_jax(tmp_path, monkeypatch):
     batch = make_scene(3)
     jcfg = jenc.EncoderFreeSplatCfg(num_depth_candidates=8, adapter=JAdapterCfg(sh_degree=2))
     jm = jenc.EncoderFreeSplat(jcfg)
     jctx = {k: jnp.asarray(a) for k, a in batch["context"].items()}
     var = fill_variables(jax.eval_shape(lambda c: jm.init(jax.random.PRNGKey(0), c), jctx), seed=4)
     # The JAX side renders with its dense reference compositor: its tile
-    # rasterizer runs eagerly in Pallas interpret mode (~30 s here).
+    # rasterizer runs eagerly in Pallas interpret mode (~30 s here).  Its
+    # save_projections panels run the epipolar sampler and the Pallas
+    # rasterizer (the projections) jitted.
+    jit_jax_panels(monkeypatch)
     jpsnr = jax_validation_step(jcfg, JDecoderCfg(sh_degree=2, use_reference_rasterizer=True),
-                                var, batch, 7, output_dir=tmp_path / "jax")["psnr"]
+                                var, batch, 7, output_dir=tmp_path / "jax",
+                                save_projections=True)["psnr"]
     jgrid = np.asarray(Image.open(tmp_path / "jax" / "val_0000007.png")).astype(int)
+    names = sorted(p.name for p in (tmp_path / "jax").glob("*.png"))
+    assert names == [f"val_0000007{s}.png" for s in
+                     ("", "_cameras", "_depth", "_epipolar", "_gaussians", "_projections")]
 
     for train_bn in (True, False):
         tcfg = tenc.EncoderFreeSplatCfg(num_depth_candidates=8, adapter=TAdapterCfg(sh_degree=2),
@@ -176,7 +196,9 @@ def test_validation_step_matches_jax(tmp_path):
         for use_ref in (True, False) if train_bn else (False,):
             out = tmp_path / f"torch_{train_bn}_{use_ref}"
             dcfg = TDecoderCfg(sh_degree=2, use_reference_rasterizer=use_ref)
-            psnr = validation_step(tcfg, dcfg, enc, batch, 7, output_dir=out)["psnr"]
+            projections = train_bn and not use_ref
+            psnr = validation_step(tcfg, dcfg, enc, batch, 7, output_dir=out,
+                                   save_projections=projections)["psnr"]
             # Batch-statistics BN over 2 images of 64x64 amplifies float32
             # rounding (ROADMAP §3) and the tile compositor is held to 2e-5
             # against the dense one: measured 3.5e-5 dB.
@@ -186,12 +208,20 @@ def test_validation_step_matches_jax(tmp_path):
             assert np.abs(grid - jgrid).max() <= 1  # uint8 rounding of close values
             line = (out / "val_metrics.txt").read_text()
             assert line.startswith("step 7 scene scene3 psnr ")
+            if projections:
+                assert sorted(p.name for p in out.glob("*.png")) == names
+                for name in names[1:]:
+                    a = np.asarray(Image.open(out / name)).astype(int)
+                    b = np.asarray(Image.open(tmp_path / "jax" / name)).astype(int)
+                    assert a.shape == b.shape, name
+                    d = np.abs(a - b)
+                    most, share = PANEL_TOLERANCE[name.split("_")[-1][:-4]]
+                    assert d.max() <= most and (d > 0).mean() <= share, (name, d.max(),
+                                                                         (d > 0).mean())
         # The training encoder: buffers and train() mode as before.
         assert enc.training
         for k, v in enc.state_dict().items():
             assert torch.equal(v, before[k]), k
-    with pytest.raises(NotImplementedError, match="save_projections"):
-        validation_step(tcfg, dcfg, enc, batch, 7, output_dir=tmp_path, save_projections=True)
 
 
 # ---------------------------------------------------------------------------

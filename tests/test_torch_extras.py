@@ -252,6 +252,3 @@ def test_validation_step_writes_both_videos(tmp_path):
     for name in ("val_0000005_wobble.gif", "val_0000005_interpolation.gif"):
         assert gif_frames(tmp_path / name) == 30, name
     assert (tmp_path / "val_0000005.png").exists()
-    with pytest.raises(NotImplementedError, match="encoder_visualizer"):
-        validation_step(cfg, tdec.DecoderCfg(), encoder, batch, 5, output_dir=tmp_path,
-                        save_projections=True)

@@ -27,8 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "freesplat_tpu",
-                                    "matplotlib"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "freesplat_tpu",
+                                    "matplotlib", "timm", "lpips"))
 print(len(names), bad)
 """
 

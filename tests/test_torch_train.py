@@ -39,6 +39,7 @@ from freesplat_tpu_torch.models import backbone as tbb
 from freesplat_tpu_torch.models import encoder as tenc
 from freesplat_tpu_torch.models.adapter import GaussianAdapterCfg as TAdapterCfg
 from freesplat_tpu_torch.training import losses as tlo
+from freesplat_tpu_torch.scripts.lpips_leg import synthesize_lpips_pth
 from freesplat_tpu_torch.training import lpips as tlp
 from freesplat_tpu_torch.training import schedule as tsc
 from freesplat_tpu_torch.training import trainer as ttr
@@ -132,8 +133,11 @@ def test_lpips_params_npz_round_trip(tmp_path):
     for (kj, a), (kt, b) in zip(sorted(_flat(var)), sorted(_flat(back))):
         assert kj == kt
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="npz"):
-        tlp.load_lpips_params(str(tmp_path / "lpips.pth"))
+    # An ``lpips``-package .pth is converted too (the converter is held
+    # against JAX's in tests/test_torch_convert.py).
+    synthesize_lpips_pth(tmp_path / "lpips.pth")
+    pth_tree = tlp.load_lpips_params(str(tmp_path / "lpips.pth"))
+    assert [k for k, _ in sorted(_flat(pth_tree))] == [k for k, _ in sorted(_flat(var))]
 
 
 def test_depth_losses_raise_until_ported():
