@@ -135,7 +135,23 @@
    orthographic projection view (256x256, fov 10 degrees) the instances
    and ``dropped`` at the default capacity, the forward kernel bit-equal
    to plain, its device time beside its bound.
-14. Prints the kernel table as one JSON line, the card line, and last
+14. Multi-device (``[multi]``, after the CLI): a child launched by
+   ``torchrun --standalone --nproc_per_node 1`` (a world-1 NCCL group;
+   ``multi_worker``) trains 3 CLI steps of 8 targets with no group
+   (``FREESPLAT_DISTRIBUTED=0``) and then with ``trainer.devices=auto``:
+   every logged metric bit-equal.  At the 384x512 train view of a seeded
+   encoder's Gaussians, ``render_slab`` for the 4 ranks of a 4-way split:
+   assembled bit-equal to ``rasterize`` (color, depth, alpha), nothing
+   dropped; the world-1 ``rasterize_sharded`` bit-equal to ``rasterize``
+   in value and gradient; at slab 3 (``col_offset`` 24) the forward
+   kernel bit-equal to plain and the backward within 2e-4 scaled, both
+   timed beside the whole view with their bounds.  ``encode_whole_scene``
+   + ``render_whole_scene`` on a 30-view synthetic scene against
+   ``make_chunked_encode`` + ``render_views``: masks equal, means, color
+   and depth within 1e-4 (bit-equal expected).  ``scaling_bench`` at
+   world size 1.  Launches by path: ``multi_data``, ``multi_train``,
+   ``multi_val``, ``sharded_render``, ``whole_scene_sharded``.
+15. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -229,9 +245,16 @@ def sync():
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """ms a call of ``fn``: CUDA events around ``reps`` calls after a warm
+    one; the host clock in a CPU rehearsal (``DEVICE = "cpu"``)."""
     import torch
 
     fn()  # warm up
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -276,24 +299,25 @@ def screen_inputs(args, shape, sh_degree, capacity, device):
     return inst, binning
 
 
-def compare_tiles(inst, binning, tiles_x, seed=0):
+def compare_tiles(inst, binning, tiles_x, seed=0, col_offset=0):
     """Forward and backward kernels vs their plain versions on the same
     inputs (numpy-seeded cotangent): the forward bit-equal, the backward
     within TOL_GRAD scaled.  Returns (forward max abs error,
     backward max abs error, forward (evaluated, blended, stopped) pairs,
     backward (walked, contributing) pairs, the kernel forward's (out, walk), the cotangent, and the
-    backward's largest error after scaling by each column's max)."""
+    backward's largest error after scaling by each column's max).
+    ``col_offset``: the tiles' first image column (a slab)."""
     import torch
 
     args = (inst, binning.tile_start, binning.tile_count, tiles_x)
-    err, pairs, (k, k_walk), _ = compare_forward(args)
+    err, pairs, (k, k_walk), _ = compare_forward(args, col_offset)
     rng = np.random.default_rng(seed)
     cot = torch.from_numpy(rng.standard_normal(tuple(k.shape)).astype(np.float32)).to(k.device)
-    bwd_err, scaled, walked, contributed = check_bwd(args, k, k_walk, cot)
+    bwd_err, scaled, walked, contributed = check_bwd(args, k, k_walk, cot, col_offset)
     return err, bwd_err, pairs, (walked, contributed), (k, k_walk), cot, scaled
 
 
-def compare_forward(args):
+def compare_forward(args, col_offset=0):
     """The forward kernel vs its plain version on one input, bit-equal
     (color, depth, log T and the ``walk`` residual).  Returns (max abs
     error, (evaluated, blended, stopped) pairs, the kernel's (out, walk),
@@ -302,10 +326,11 @@ def compare_forward(args):
     from freesplat_tpu_torch.ops import rasterizer as R
 
     with torch.no_grad():
-        k, k_walk = R.composite_tiles_fwd(*args)
+        k, k_walk = R.composite_tiles_fwd(*args, col_offset=col_offset)
         sync()
         t0 = time.perf_counter()
-        p, p_walk, pairs = R.composite_tiles_plain(*args, count_pairs=True)
+        p, p_walk, pairs = R.composite_tiles_plain(*args, count_pairs=True,
+                                                   col_offset=col_offset)
         sync()
         plain_ms = 1e3 * (time.perf_counter() - t0)
     rgb, depth, log_t = ((k[..., c] - p[..., c]).abs().max().item() if k.numel() else 0.0
@@ -318,7 +343,7 @@ def compare_forward(args):
     return max(rgb, depth, log_t), pairs, (k, k_walk), plain_ms
 
 
-def check_bwd(args, out, walk, cot):
+def check_bwd(args, out, walk, cot, col_offset=0):
     """The backward kernel vs its plain version on one input: every dinst
     column within TOL_GRAD after scaling by the column's largest
     magnitude, every value finite.  Returns (max abs error, scaled error,
@@ -327,9 +352,10 @@ def check_bwd(args, out, walk, cot):
     from freesplat_tpu_torch.ops import rasterizer as R
 
     with torch.no_grad():
-        dk = R.composite_tiles_bwd(*args, out, walk, cot)
+        dk = R.composite_tiles_bwd(*args, out, walk, cot, col_offset=col_offset)
         dp, walked, contributed = R.composite_tiles_plain_bwd(*args, out, walk, cot,
-                                                              count_pairs=True)
+                                                              count_pairs=True,
+                                                              col_offset=col_offset)
     sync()
     bwd_err, scaled = 0.0, 0.0
     if dk.numel():
@@ -398,18 +424,37 @@ def _baseline_fn(name: str):
     return getattr(ctypes.CDLL(str(cuda_build.build(name, csrc=BASELINE))), f"freesplat_{name}")
 
 
+# The C signatures of the baseline's rasterizer kernels: a tree from
+# before the tile-column offset (PRs 1-9), whose entry points take
+# (inst, tile_start, tile_count, num_tiles, tiles_x, ...) with no
+# col_offset.  A baseline with another signature needs its own binding.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BASELINE_ARGTYPES = {
+    "rasterize_fwd": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "rasterize_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+}
+
+
 @contextlib.contextmanager
 def baseline_kernels():
     """Inside, the rasterizer wrappers launch the kernels built from
-    ``BASELINE`` (typed as this tree's) in place of this tree's."""
+    ``BASELINE`` (bound with ``BASELINE_ARGTYPES``) in place of this
+    tree's; the wrappers' col_offset (the sixth argument) must be 0 and is
+    not passed."""
     from freesplat_tpu_torch.ops import rasterizer as R
 
     own = R._kernel_entry
 
     def entry(name):
-        fn, ref = _baseline_fn(name), own(name)
-        fn.restype, fn.argtypes = ref.restype, ref.argtypes
-        return fn
+        fn = _baseline_fn(name)
+        fn.restype, fn.argtypes = ctypes.c_int, BASELINE_ARGTYPES[name]
+
+        def call(*args):
+            if args[5] != 0:
+                raise ValueError(f"baseline {name} has no col_offset, got {args[5]}")
+            return fn(*args[:5], *args[6:])
+
+        return call
 
     R._kernel_entry = entry
     try:
@@ -447,26 +492,29 @@ def baseline_times(args, out, walk, cot, label):
             f"this, baseline): {', '.join(f'{t:.4f}' for t in turns)}")
 
 
-def time_kernels(inst, binning, tiles_x, cmp, label):
+def time_kernels(inst, binning, tiles_x, cmp, label, col_offset=0):
     """Both kernels' device time (``device_bench``: back-to-back launches),
     the plain versions' (CUDA events around one call), each kernel's bound
     and the warp-steps of each kernel with and without the cull, for one
     input, from ``compare_tiles``' results ``cmp``.  With ``BASELINE`` set,
-    also ``baseline_times``."""
+    also ``baseline_times`` (whole views only).  ``col_offset``: the
+    tiles' first image column (a slab)."""
     from freesplat_tpu_torch.ops import rasterizer as R
     from freesplat_tpu_torch.utils.timing import device_bench
 
     _, _, pairs, (walked, contributed), (out, walk), cot, _ = cmp
     args = (inst, binning.tile_start, binning.tile_count, tiles_x)
+    off = {"col_offset": col_offset}
     saved = dict(R.launch_count)
-    fwd = (device_bench(R.composite_tiles_fwd, [args], n=20) * 1e3,
-           cuda_ms(lambda: R.composite_tiles_plain(*args), reps=1))
-    bwd = (device_bench(R.composite_tiles_bwd, [(*args, out, walk, cot)], n=20) * 1e3,
-           cuda_ms(lambda: R.composite_tiles_plain_bwd(*args, out, walk, cot), reps=1))
-    if BASELINE is not None:
+    fwd = (device_bench(functools.partial(R.composite_tiles_fwd, **off), [args], n=20) * 1e3,
+           cuda_ms(lambda: R.composite_tiles_plain(*args, **off), reps=1))
+    bwd = (device_bench(functools.partial(R.composite_tiles_bwd, **off),
+                        [(*args, out, walk, cot)], n=20) * 1e3,
+           cuda_ms(lambda: R.composite_tiles_plain_bwd(*args, out, walk, cot, **off), reps=1))
+    if BASELINE is not None and col_offset == 0:
         baseline_times(args, out, walk, cot, label)
     R.launch_count.update(saved)  # timing launches are not the main path's
-    steps = R.warp_steps_plain(*args, walk)
+    steps = R.warp_steps_plain(*args, walk, **off)
     num_tiles = binning.tile_start.shape[0]
     k = inst.shape[0]
     # Forward: read inst and the tile ranges, write out (5 ch) and walk.
@@ -865,10 +913,10 @@ def train_depth_run():
     recorded: list = []
     own_bwd = R.composite_tiles_bwd
 
-    def recording_bwd(*args):
+    def recording_bwd(*args, **kw):
         if not recorded:
             recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-        return own_bwd(*args)
+        return own_bwd(*args, **kw)
 
     logged: list = []
     timings: dict = {}
@@ -1139,11 +1187,11 @@ def recorded_renders(fwd_calls=(0,), bwd_calls=(0,), seg_calls=()):
     keep = {"fwd": set(fwd_calls), "bwd": set(bwd_calls), "seg": set(seg_calls)}
 
     def recording(kind):
-        def fn(*args):
+        def fn(*args, **kw):
             if n[kind] in keep[kind]:
                 rec[kind][n[kind]] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
             n[kind] += 1
-            return own[kind](*args)
+            return own[kind](*args, **kw)
         return fn
 
     renders = {m: m.render_views for m in (HA, VI, V)}
@@ -2537,6 +2585,286 @@ def projections_run():
             "proj_val": paths["proj_val"]}, err, (ms, plain_ms, *bound)
 
 
+MULTI_STEPS = 3  # [multi]: CLI steps with and without the world-1 group
+MULTI_SPLIT, MULTI_RANK = 4, 3  # [multi]: the slab split; its slab held against plain
+MULTI_TIMEOUT = 600  # s, the torchrun child of [multi]
+
+
+def multi_run():
+    """``[multi]``: the multi-device paths, in a child launched by
+    ``torchrun --nproc_per_node 1`` (a world-1 group: NCCL on the card),
+    which runs ``multi_worker`` and writes its results to a JSON file.
+    Returns the child's launches by path (``multi_*``, ``sharded_render``,
+    ``whole_scene_sharded``) and its numbers."""
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()  # the child needs the card's memory
+    settings = {"DEVICE": DEVICE, "H": H, "W": W, "WS_VIEWS": WS_VIEWS,
+                "WS_TARGETS": WS_TARGETS, "WS_DEPTH": WS_DEPTH}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "multi.json"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes", "1",
+               "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), "--multi-worker", str(out),
+               "--settings", json.dumps(settings)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=MULTI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith("["):  # the child's tagged lines
+                log(line)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"[multi] torchrun child exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        res = json.loads(out.read_text())
+    log(f"[multi] torchrun child (world size 1) took {wall:.2f} s")
+    return res
+
+
+def multi_worker(out_path: str, settings: dict) -> int:
+    """The ``[multi]`` child, one rank of a torchrun launch: training
+    through ``main`` without a group and then with ``trainer.devices=auto``
+    (the launch's group), the sharded render's slabs, the whole-scene
+    pipeline and the scaling bench under that group; writes the launches
+    by path and the numbers to ``out_path``."""
+    import torch.distributed as dist
+    from freesplat_tpu_torch.parallel import distributed as D
+    from freesplat_tpu_torch.parallel import scaling_bench
+
+    globals().update(settings)
+    res: dict = {"paths": {}}
+    res["train"] = multi_train(res["paths"])
+    group = D.make_group("auto")
+    if group is None or dist.get_world_size(group) != 1:
+        raise AssertionError(f"[multi] the launch's group is {group}")
+    res["sharded_render"] = multi_sharded_render(group, res["paths"])
+    res["whole_scene"] = multi_whole_scene(group, res["paths"])
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        res["scaling"] = scaling_bench.main(
+            ["--height", str(H), "--width", str(W), "--reps", "4"], device=DEVICE)
+    for line in text.getvalue().splitlines():
+        log(f"[multi] scaling_bench: {line}")
+    Path(out_path).write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_train(paths: dict) -> dict:
+    """``main`` trains MULTI_STEPS steps (``scannet/2views`` on the
+    tile-rendered synthetic stream, 8 targets, capacity factor 8.0, MSE +
+    0.05 LPIPS) with ``FREESPLAT_DISTRIBUTED=0`` (no group), then with
+    ``trainer.devices=auto`` under the launch: every logged metric but the
+    rate must be equal, bit for bit (an all-reduce over one rank and a
+    division by 1 are exact); launches by path of the group's run."""
+    lpips_path = lpips_npz()
+    args = ["+experiment=scannet/2views", "dataset.name=synthetic",
+            "dataset.synthetic_renderer=tile", "dataset.synthetic_num_targets=8",
+            "decoder.capacity_factor=8.0", f"dataset.image_shape=[{H},{W}]",
+            f"trainer.max_steps={MULTI_STEPS}", "trainer.log_every=1",
+            "trainer.val_check_interval=1000", "checkpointing.every_n_train_steps=1000",
+            f"loss.lpips.weights_path={lpips_path}", "trainer.devices=auto"]
+    runs = {}
+    cwd = os.getcwd()
+    for label, forbid in (("no group", True), ("world-1 group", False)):
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            if forbid:
+                os.environ["FREESPLAT_DISTRIBUTED"] = "0"
+            try:
+                with counted_main("multi") as run:
+                    draws, _, by_path, text, wall = run(args + [f"checkpointing.output_dir={tmp}"])
+            finally:
+                os.environ.pop("FREESPLAT_DISTRIBUTED", None)
+                os.chdir(cwd)
+            metrics = [json.loads(line) for line in
+                       (Path(tmp) / "outputs/local/metrics.jsonl").read_text().splitlines()]
+        runs[label] = (metrics, by_path, text, wall, draws)
+    (m0, _, t0, w0, _), (m1, by_path, t1, w1, draws) = runs["no group"], runs["world-1 group"]
+    if "torch.distributed: process 0/1" not in t1 or "torch.distributed" in t0:
+        raise AssertionError("[multi] the group run did not take the launch's group, or the "
+                             "plain run did")
+    strip = [{k: v for k, v in m.items() if k not in ("steps_per_s", "time")} for m in m0 + m1]
+    if strip[:len(m0)] != strip[len(m0):] or len(m0) != MULTI_STEPS:
+        raise AssertionError(f"[multi] the world-1 group's steps differ from the plain ones:\n"
+                             f"{strip[:len(m0)]}\n{strip[len(m0):]}")
+    want = {"multi_data": {"rasterize_fwd": 10 * draws, "rasterize_bwd": 0},
+            "multi_train": {"rasterize_fwd": 8 * MULTI_STEPS, "rasterize_bwd": 8 * MULTI_STEPS},
+            "multi_val": {"rasterize_fwd": 0, "rasterize_bwd": 0}}
+    got = {p: {k: c.get(k, 0) for k in ("rasterize_fwd", "rasterize_bwd")}
+           for p, c in by_path.items()}
+    if DEVICE == "cuda" and got != want:
+        raise AssertionError(f"[multi] training launches {got}, want {want}")
+    paths.update(by_path)
+    ms = {label: [round(1e3 / m["steps_per_s"], 2) for m in r[0]] for label, r in runs.items()}
+    log(f"[multi] train: {MULTI_STEPS} CLI steps, losses {[m['loss'] for m in m1]} with the "
+        f"world-1 group, bit-equal to the steps with no group (every logged metric); ms a "
+        f"logged step (data draw + step) {ms['no group']} with no group, "
+        f"{ms['world-1 group']} with the group; walls {w0:.2f} s and {w1:.2f} s; launches "
+        f"{by_path}")
+    return {"loss": [m["loss"] for m in m1], "ms": ms}
+
+
+def multi_sharded_render(group, paths: dict) -> dict:
+    """At the 384x512 train view (the seeded ``scannet/2views`` encoder's
+    Gaussians of ``make_scene(10)``, target view 0, capacity factor 8.0):
+    ``render_slab`` at each rank of a MULTI_SPLIT-way split, the slabs
+    side by side bit-equal to ``rasterize`` (color, depth, alpha) with
+    nothing dropped; ``rasterize_sharded`` under the world-1 group equal
+    to ``rasterize`` in value and gradient, bit for bit; slab MULTI_RANK's
+    kernels against plain (forward bit-equal, backward within TOL_GRAD
+    scaled) and timed beside the whole view's."""
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.ops import rasterizer as R
+    from freesplat_tpu_torch.ops.rendering import preprocess_gaussians
+    from freesplat_tpu_torch.parallel.sharded_render import (
+        rasterize_sharded, render_slab, slab_capacity,
+    )
+
+    cfg = load_config(["+experiment=scannet/2views", "mode=train", "decoder.capacity_factor=8.0"])
+    encoder = make_encoder(cfg.encoder, device=DEVICE, seed=cfg.seed)
+    scene = make_scene(10, v_tgt=TRAIN_TARGET_VIEWS)
+    ctx = {k: torch.from_numpy(np.asarray(scene["context"][k])).to(DEVICE) for k in VIEW_KEYS}
+    tgt = {k: torch.from_numpy(np.asarray(scene["target"][k])).to(DEVICE) for k in VIEW_KEYS}
+    with torch.no_grad():
+        g = encoder(ctx)["gaussians"]
+    near = tgt["near"][0, 0]
+    extr = tgt["extrinsics"][0, 0].clone()
+    extr[:3, 3] = extr[:3, 3] / near  # the decoder's 1/near rescale
+    leaves = [g.means[0] / near, g.covariances[0] / (near * near), g.harmonics[0],
+              g.masked_opacities()[0]]
+    view = (extr, tgt["intrinsics"][0, 0], (H, W), torch.zeros(3, device=DEVICE), 2)
+    n = leaves[0].shape[0]
+    cap = R.render_capacity(n, 8.0)
+    with torch.no_grad():
+        whole = R.rasterize(*leaves, *view, capacity=cap, return_stats=True)
+        screen = preprocess_gaussians(*leaves, extr, view[1], (H, W), 2)
+        whole_bin = R.bin_gaussians(screen, (H, W), cap)
+        whole_inst = R.build_instance_rows(screen, whole_bin)
+
+    reset_launch_counts()
+    with torch.no_grad():
+        slabs = [render_slab(screen, r, MULTI_SPLIT, (H, W), slab_capacity(cap, MULTI_SPLIT))
+                 for r in range(MULTI_SPLIT)]
+    params = [x.detach().clone().requires_grad_() for x in leaves]
+    sharded = rasterize_sharded(*params, *view, group=group, capacity=cap, return_stats=True)
+    loss = sum((x * (i + 1.0)).sum() for i, x in enumerate(sharded[:3]))
+    grads = torch.autograd.grad(loss, params)
+    sync()
+    launches = launch_counts()
+    paths["sharded_render"] = launches
+    if DEVICE == "cuda" and (launches["rasterize_fwd"], launches["rasterize_bwd"]) != (
+            MULTI_SPLIT + 1, 1):
+        raise AssertionError(f"[multi] sharded render launches {launches}")
+    dropped = [int(b.dropped) for _, b, _ in slabs]
+    assembled = R.finish_image(torch.cat([img for img, _, _ in slabs], dim=1), (H, W), view[3])
+    if any(dropped) or int(whole[3]["dropped"]) or int(sharded[3]["dropped"]):
+        raise AssertionError(f"[multi] dropped: slabs {dropped}, whole {int(whole[3]['dropped'])}")
+    for name, a, b, c in zip(("color", "depth", "alpha"), assembled, whole[:3], sharded[:3]):
+        if not (torch.equal(a, b) and torch.equal(c, b)):
+            raise AssertionError(f"[multi] {name}: slabs {float((a - b).abs().max())}, "
+                                 f"world-1 sharded {float((c - b).abs().max())} from rasterize")
+    ref = [x.detach().clone().requires_grad_() for x in leaves]
+    out = R.rasterize(*ref, *view, capacity=cap)
+    ref_grads = torch.autograd.grad(sum((x * (i + 1.0)).sum() for i, x in enumerate(out)), ref)
+    if not all(torch.equal(a, b) for a, b in zip(grads, ref_grads)):
+        raise AssertionError("[multi] world-1 rasterize_sharded's gradient differs from "
+                             "rasterize's")
+
+    _, binning, inst = slabs[MULTI_RANK]
+    local_cols = (W // 16) // MULTI_SPLIT
+    col_offset = MULTI_RANK * local_cols
+    cmp = compare_tiles(inst, binning, local_cols, seed=4, col_offset=col_offset)
+    slab_t = time_kernels(inst, binning, local_cols, cmp, f"slab {MULTI_RANK} of {MULTI_SPLIT} "
+                          f"(col_offset {col_offset})", col_offset=col_offset)
+    whole_cmp = compare_tiles(whole_inst, whole_bin, W // 16, seed=4)
+    whole_t = time_kernels(whole_inst, whole_bin, W // 16, whole_cmp, "whole train view")
+    log(f"[multi] sharded render at the train view: {MULTI_SPLIT} slabs of {local_cols} tile "
+        f"columns bit-equal to rasterize assembled (color, depth, alpha), dropped {dropped}, "
+        f"instances {[int(b.num_instances) for _, b, _ in slabs]} (whole "
+        f"{int(whole_bin.num_instances)}); world-1 rasterize_sharded bit-equal in value and "
+        f"gradient; slab {MULTI_RANK} (col_offset {col_offset}): forward max_err {cmp[0]:.3g}, "
+        f"backward max_err {cmp[1]:.3g} (scaled {cmp[-1]:.3g}); device ms forward "
+        f"{slab_t['rasterize_fwd'][0]:.4f} at the slab, {whole_t['rasterize_fwd'][0]:.4f} the "
+        f"whole view (bound {slab_t['rasterize_fwd'][2]:.4f} / {whole_t['rasterize_fwd'][2]:.4f}"
+        f"), backward {slab_t['rasterize_bwd'][0]:.4f} / {whole_t['rasterize_bwd'][0]:.4f} "
+        f"(bound {slab_t['rasterize_bwd'][2]:.4f} / {whole_t['rasterize_bwd'][2]:.4f}); "
+        f"launches {launches}")
+    return {"slab": slab_t, "whole": whole_t, "errs": [cmp[0], cmp[1]], "dropped": dropped}
+
+
+def multi_whole_scene(group, paths: dict) -> dict:
+    """``encode_whole_scene`` + ``render_whole_scene`` under the world-1
+    group on ``whole_scene_bench``'s config (one synthetic scene of
+    WS_VIEWS context and WS_TARGETS target views, 15 views a trunk chunk,
+    capacity factor 1.0) against ``make_chunked_encode`` + ``render_views``
+    with the same weights: equal valid masks, means and rendered color
+    and depth within 1e-4 (the same arithmetic is expected, bit for bit),
+    nothing dropped; one forward launch a target view."""
+    import torch
+    from freesplat_tpu_torch.evaluation.harness import make_chunked_encode
+    from freesplat_tpu_torch.models.decoder import render_views
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.parallel.whole_scene import encode_whole_scene, render_whole_scene
+    from freesplat_tpu_torch.scripts.whole_scene_bench import bench_config
+
+    (scene,) = whole_scene_batches(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = bench_config(WS_VIEWS, H, W, tmp, WS_DEPTH)
+    encoder = make_encoder(dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
+                           device=DEVICE, seed=cfg.seed)
+    dec = dataclasses.replace(cfg.decoder, capacity_factor=cfg.test.render_capacity_factor)
+    chunk = cfg.test.encode_view_chunk
+    ctx = {k: scene["context"][k] for k in VIEW_KEYS}
+    tgt = {k: scene["target"][k] for k in VIEW_KEYS}
+    with torch.no_grad():
+        ref = make_chunked_encode(encoder, chunk)(ctx)
+        ref_out = render_views(dec, ref["gaussians"], tgt["extrinsics"], tgt["intrinsics"],
+                               tgt["near"], tgt["far"], (H, W))
+        sync()
+        timings: dict = {}
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = encode_whole_scene(encoder, ctx, group=group, view_chunk=chunk, timings=timings)
+        sync()
+        t1 = time.perf_counter()
+        color, depth, alpha, dropped = render_whole_scene(
+            dec, res["gaussians"], tgt["extrinsics"][0], tgt["intrinsics"][0], tgt["near"][0],
+            tgt["far"][0], (H, W), group=group)
+        sync()
+        t2 = time.perf_counter()
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    paths["whole_scene_sharded"] = launches
+    if DEVICE == "cuda" and (launches["rasterize_fwd"], launches["rasterize_bwd"]) != (
+            WS_TARGETS, 0):
+        raise AssertionError(f"[multi] whole-scene launches {launches}")
+    g, rg = res["gaussians"], ref["gaussians"]
+    diffs = {
+        "means": float((g.means - rg.means).abs().max()),
+        "opacities": float((g.opacities - rg.opacities).abs().max()),
+        "color": float((color - ref_out.color[0]).abs().max()),
+        "depth": float((depth - ref_out.depth[0]).abs().max()),
+    }
+    if not torch.equal(g.mask, rg.mask) or max(diffs.values()) > 1e-4 or int(dropped.sum()):
+        raise AssertionError(f"[multi] whole scene against the chunked encode: masks equal "
+                             f"{torch.equal(g.mask, rg.mask)}, max |d| {diffs}, dropped "
+                             f"{dropped.tolist()}")
+    ms = {k: [round(1e3 * t, 2) for t in v] for k, v in timings.items()}
+    log(f"[multi] whole scene ({WS_VIEWS} views, {WS_TARGETS} targets) under the world-1 "
+        f"group: encode {1e3 * (t1 - t0):.2f} ms (phases {ms}), render "
+        f"{1e3 * (t2 - t1) / WS_TARGETS:.2f} ms a view, peak {peak} B; against the chunked "
+        f"encode + render_views max |d| {diffs}, masks equal, {int(g.mask.sum())} Gaussians; "
+        f"launches {launches}")
+    return {"encode_ms": 1e3 * (t1 - t0), "render_ms": 1e3 * (t2 - t1) / WS_TARGETS,
+            "diffs": diffs, "peak": peak}
+
+
 def profile_window(fn, label):
     """torch.profiler over one warm call of ``fn``: the device's busy share
     of the host wall time and the top kernels by device time."""
@@ -2574,13 +2902,19 @@ def main(argv=None) -> int:
                     help="a directory holding another tree's rasterize_{fwd,bwd}.cu and "
                          "gather_rows.cu, held against this tree's kernels and timed "
                          "beside them")
-    BASELINE = ap.parse_args(argv).baseline
+    ap.add_argument("--multi-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--settings", default="{}", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    BASELINE = args.baseline
     import torch
 
-    if not torch.cuda.is_available():
+    settings = json.loads(args.settings)
+    if not torch.cuda.is_available() and settings.get("DEVICE") != "cpu":
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.multi_worker:  # the [multi] phase's torchrun child
+        return multi_worker(args.multi_worker, settings)
     card = card_line()
     import freesplat_tpu_torch  # noqa: F401  (sets the precision flags)
     from freesplat_tpu_torch.utils import cuda_build
@@ -2620,6 +2954,7 @@ def main(argv=None) -> int:
     gather_err, gather_t = gather_phase()
     probe_launches, probe = probe_run()
     cli_launches, _ = cli_run()
+    multi = multi_run()
     proj_launches, proj_err, proj_t = projections_run()
     errs.append((proj_err, 0.0))
     fvt_train_launches = fvt_train_run()
@@ -2638,7 +2973,7 @@ def main(argv=None) -> int:
              "replica": replica_launches, "probe": probe_launches, **cli_launches,
              **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches,
              **re10k_launches, "re10k_test": re10k_test_launches, **weights_launches,
-             **leg_launches, **proj_launches}
+             **leg_launches, **proj_launches, **multi["paths"]}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]

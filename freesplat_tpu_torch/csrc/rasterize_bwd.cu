@@ -92,7 +92,7 @@ __device__ __forceinline__ void halve(const float (&v)[N], float (&r)[(N + 1) / 
 // wave).
 __global__ void __launch_bounds__(PIX, 6)
 composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start,
-              const int* __restrict__ tile_count, int tiles_x,
+              const int* __restrict__ tile_count, int tiles_x, int col_offset,
               const float* __restrict__ fwd_out, const int* __restrict__ walk,
               const float* __restrict__ cot, float* __restrict__ dinst) {
   __shared__ float s_inst[BATCH * NF];
@@ -106,7 +106,7 @@ composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start
   const int p = tile_cull::pixel_of_thread(i);
   const long long start = tile_start[t];
   const int count = tile_count[t];
-  const float x0 = (float)((t % tiles_x) * TILE);
+  const float x0 = (float)((col_offset + t % tiles_x) * TILE);  // as the forward
   const float y0 = (float)((t / tiles_x) * TILE);
   const float px = x0 + (float)(p % TILE);
   const float py = y0 + (float)(p / TILE);
@@ -245,17 +245,19 @@ composite_bwd(const float* __restrict__ inst, const int* __restrict__ tile_start
 
 }  // namespace
 
-// inst: (k, 10) f32; tile_start, tile_count: (num_tiles,) i32;
-// fwd_out, cot: (num_tiles, 256, 5) f32; walk: (num_tiles, 256) i32;
-// dinst: (k, 10) f32, every row written.  Launches on ``stream``; returns
+// inst: (k, 10) f32; tile_start, tile_count: (num_tiles,) i32, tiles
+// row-major over (num_tiles / tiles_x, tiles_x), the first column at
+// image tile column col_offset (as the forward); fwd_out, cot:
+// (num_tiles, 256, 5) f32; walk: (num_tiles, 256) i32; dinst: (k, 10)
+// f32, every row written.  Launches on ``stream``; returns
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int freesplat_rasterize_bwd(const float* inst, const int* tile_start,
                                        const int* tile_count, int num_tiles,
-                                       int tiles_x, const float* fwd_out,
-                                       const int* walk, const float* cot,
-                                       float* dinst, void* stream) {
+                                       int tiles_x, int col_offset,
+                                       const float* fwd_out, const int* walk,
+                                       const float* cot, float* dinst, void* stream) {
   if (num_tiles <= 0) return 0;
   composite_bwd<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      inst, tile_start, tile_count, tiles_x, fwd_out, walk, cot, dinst);
+      inst, tile_start, tile_count, tiles_x, col_offset, fwd_out, walk, cot, dinst);
   return static_cast<int>(cudaGetLastError());
 }

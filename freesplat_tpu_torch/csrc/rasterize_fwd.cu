@@ -24,7 +24,11 @@
 // Semantics, per pixel and instance, as the TPU kernel and the CUDA
 // rasterizer spec:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy, with integer pixel
-//           coordinates px = tx*16 + col, py = ty*16 + row (no +0.5);
+//           coordinates px = tx*16 + col, py = ty*16 + row (no +0.5),
+//           where tile t sits at column tx = col_offset + t % tiles_x
+//           of the image: a slab of tiles_x columns starting at
+//           col_offset (0 for a whole image), as the TPU kernel's
+//           tw_ref = [tiles_x_local, col_off];
 //   alpha = min(0.99, opacity exp(power)), skipped when power > 0 or
 //           alpha < 1/255;
 //   a pixel terminates, sticky, at the first instance that would take
@@ -72,7 +76,7 @@ constexpr unsigned FULL = 0xffffffffu;
 // wave).
 __global__ void __launch_bounds__(PIX, 6)
 composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start,
-              const int* __restrict__ tile_count, int tiles_x,
+              const int* __restrict__ tile_count, int tiles_x, int col_offset,
               float* __restrict__ out, int* __restrict__ walk) {
   __shared__ float s_inst[BATCH * NF];
   __shared__ unsigned char s_mask[BATCH];
@@ -83,7 +87,7 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
   const int p = tile_cull::pixel_of_thread(i);
   const long long start = tile_start[t];
   const int cnt = min(tile_count[t], MAX_INST);
-  const float x0 = (float)((t % tiles_x) * TILE);
+  const float x0 = (float)((col_offset + t % tiles_x) * TILE);
   const float y0 = (float)((t / tiles_x) * TILE);
   const float px = x0 + (float)(p % TILE);
   const float py = y0 + (float)(p / TILE);
@@ -176,15 +180,17 @@ composite_fwd(const float* __restrict__ inst, const int* __restrict__ tile_start
 
 }  // namespace
 
-// inst: (k, 10) f32; tile_start, tile_count: (num_tiles,) i32;
-// out: (num_tiles, 256, 5) f32; walk: (num_tiles, 256) i32.  Launches on
-// ``stream``; returns cudaGetLastError() of the launch (0 on success).
+// inst: (k, 10) f32; tile_start, tile_count: (num_tiles,) i32, tiles
+// row-major over (num_tiles / tiles_x, tiles_x), the first column at
+// image tile column col_offset; out: (num_tiles, 256, 5) f32; walk:
+// (num_tiles, 256) i32.  Launches on ``stream``; returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int freesplat_rasterize_fwd(const float* inst, const int* tile_start,
                                        const int* tile_count, int num_tiles,
-                                       int tiles_x, float* out, int* walk,
-                                       void* stream) {
+                                       int tiles_x, int col_offset, float* out,
+                                       int* walk, void* stream) {
   if (num_tiles <= 0) return 0;
   composite_fwd<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      inst, tile_start, tile_count, tiles_x, out, walk);
+      inst, tile_start, tile_count, tiles_x, col_offset, out, walk);
   return static_cast<int>(cudaGetLastError());
 }

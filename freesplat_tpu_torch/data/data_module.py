@@ -136,8 +136,9 @@ class DataModule:
         self.step_fn = step_fn
         self.prefetch = prefetch
 
-    def _stream(self, dataset, *, shuffle: bool, loop: bool) -> Iterator[dict]:
-        rank, world = process_rank()
+    def _stream(self, dataset, *, shuffle: bool, loop: bool,
+                shard: bool = True) -> Iterator[dict]:
+        rank, world = process_rank() if shard else (0, 1)
         rng = np.random.default_rng(self.cfg.seed)
         bs = self.cfg.batch_size
 
@@ -199,7 +200,10 @@ class DataModule:
 
         return stream()
 
-    def test_batches(self) -> Iterator[dict]:
+    def test_batches(self, replicated: bool = False) -> Iterator[dict]:
+        """The test stage's batches: each process's share of the scenes, or
+        with ``replicated`` every scene on every process (``test.view_shard``
+        encodes each scene on all the ranks together)."""
         return self._stream(
-            self.dataset_factory("test"), shuffle=False, loop=False
+            self.dataset_factory("test"), shuffle=False, loop=False, shard=not replicated
         )

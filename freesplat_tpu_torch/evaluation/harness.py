@@ -14,8 +14,9 @@ scene in chunks of views (``make_chunked_encode``, the whole-scene path).
 ``test.save_ply`` writes each scene's valid Gaussians to
 ``<scene>/gaussians.ply`` and ``test.save_video`` renders the wobble and
 context-interpolation videos (``<scene>/{wobble,interpolation}.gif``, 30
-frames each).  Not ported yet: ``test.view_shard`` (multi-device); a cfg
-that asks for it raises NotImplementedError.
+frames each).  ``test.view_shard`` splits each scene's context views
+over the ranks of a multi-process launch (torchrun) for the encode
+(JAX's ``make_view_sharded_encode``); rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ from ..models.decoder import render_views
 from ..models.encoder import EncoderFreeSplat, make_encoder, sweep_geometry
 from ..models.ptf import fuse_views
 from ..models.types import Gaussians
+from ..models.backbone import synced_batch_norm
+from ..parallel.distributed import (
+    all_gather_plain, group_rank, make_group, maybe_initialize_distributed, rank_device,
+)
 from ..training.checkpoint import latest_step, load_checkpoint
 from ..training.metrics import compute_psnr, compute_ssim, depth_metrics
 from ..utils.benchmarker import Benchmarker
@@ -44,10 +49,6 @@ from ..utils.visualization import depth_to_color
 from .video import render_video_interpolation, render_video_wobble
 
 _VIEW_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
-
-
-def _unsupported(cfg: RootCfg) -> list[str]:
-    return ["test.view_shard"] if cfg.test.view_shard else []
 
 
 def _sync(device: torch.device) -> None:
@@ -61,12 +62,24 @@ def _save_image(array: np.ndarray, path: Path) -> None:
 
 
 def make_chunked_encode(
-    encoder: EncoderFreeSplat, view_chunk: int,
+    encoder: EncoderFreeSplat, view_chunk: int | None,
     timings: dict[str, list[float]] | None = None,
+    group=None,
+    trunk_only: bool = False,
 ):
     """Whole-scene encode of one scene (batch 1) on one card, ``view_chunk``
     views at a time: ``encode(context) -> results`` as ``encoder(context)``
     returns them (no ``depth_s{i}`` of the lower scales).
+
+    With a process ``group`` the views are split over its ranks: each rank
+    runs A and B on its own share (in chunks of ``view_chunk``, default
+    the whole share) and all-gathers the matching features after A and
+    the trunk outputs after B; the geometry, C1 and C2 run replicated
+    (JAX's ``make_view_sharded_encode``).  Batch-statistics BN then
+    normalizes each chunk over every rank's chunk (``synced_batch_norm``):
+    with one chunk a rank, over the whole scene.
+    ``trunk_only`` returns the trunk dict after B (every view's PTF
+    inputs) instead.
 
     Port of ``freesplat_tpu/evaluation/harness.py::make_chunked_encode``:
     A, the matching features of every view, by chunks; then
@@ -104,8 +117,16 @@ def make_chunked_encode(
             d = {k: x[:, sl] for k, x in context.items() if k in _VIEW_KEYS}
             return {**d, **(extra or {})}
 
-        chunks = [slice(s, min(s + view_chunk, v)) for s in range(0, v, view_chunk)]
-        match_bv = torch.cat([encoder(sub(sl), stage="match")["match"] for sl in chunks], dim=1)
+        rank, world = group_rank(group)
+        if v % world:
+            raise ValueError(f"{v} views do not split over {world} ranks")
+        lo, hi = rank * (v // world), (rank + 1) * (v // world)
+        step = view_chunk or hi - lo
+        chunks = [slice(s, min(s + step, hi)) for s in range(lo, hi, step)]
+        with synced_batch_norm(encoder, group):
+            match_bv = torch.cat([encoder(sub(sl), stage="match")["match"] for sl in chunks],
+                                 dim=1)
+        match_bv = all_gather_plain(match_bv, group, dim=1)
         mh, mw = match_bv.shape[2:4]
         mark("A_match_s")
 
@@ -121,11 +142,15 @@ def make_chunked_encode(
                 "src_K": src_K[None, sl],
                 "cur_invK": cur_invK[None, sl],
             }
-            outs.append(encoder(sub(sl, extra), stage="trunk_chunk"))
+            with synced_batch_norm(encoder, group):
+                outs.append(encoder(sub(sl, extra), stage="trunk_chunk"))
             mark("B_trunk_s")
-        trunk = {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
+        trunk = {k: all_gather_plain(torch.cat([o[k] for o in outs], dim=1), group, dim=1)
+                 for k in outs[0]}
         del outs
         mark("B_concat_s")
+        if trunk_only:
+            return trunk
 
         # JAX takes fuse_views_bucketed above 8 views, for XLA's static
         # shapes; here that is fuse_views itself (models/ptf.py).
@@ -178,11 +203,18 @@ def run_test(
     "decoder_s_per_view", "metrics_s" and "dumps_s" (host clock around
     synchronized device work), "ply_s" with ``test.save_ply``, "video_s"
     with ``test.save_video``, and with ``test.encode_view_chunk`` the
-    chunked encode's phases (``make_chunked_encode``)."""
+    chunked encode's phases (``make_chunked_encode``).
+
+    ``test.view_shard`` under a multi-process launch (world size > 1):
+    every rank runs this loop, each scene's encode split over the ranks
+    when they divide its context views (else, with a note, the unsharded
+    encode), and only rank 0 writes files."""
     device = resolve_device(device)
-    unsupported = _unsupported(cfg)
-    if unsupported:
-        raise NotImplementedError(f"run_test: not ported yet: {unsupported}")
+    group = None
+    if cfg.test.view_shard and maybe_initialize_distributed(device):
+        device = rank_device(device)
+        group = make_group("auto")
+    rank, world = group_rank(group)
     if max_scenes is None:
         max_scenes = cfg.test.max_scenes
         if max_scenes is None and cfg.dataset.name == "synthetic":
@@ -192,7 +224,7 @@ def run_test(
     if batches is None:
         from ..main import make_batches  # the CLI's dataset routing
 
-        batches = make_batches(cfg, "test", device=device)
+        batches = make_batches(cfg, "test", device=device, replicated=world > 1)
     if state is None and cfg.checkpointing.load is not None:
         step = latest_step(cfg.checkpointing.load)
         if step is not None:
@@ -210,6 +242,19 @@ def run_test(
     encode = encoder
     if cfg.test.encode_view_chunk:
         encode = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings)
+    if world > 1:
+        unsharded = encode
+        sharded = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings, group=group)
+
+        def encode(context):
+            # Exact only when the views divide the ranks (padding with
+            # duplicate views would change PTF's merges), as in JAX.
+            v_ctx = context["image"].shape[1]
+            if v_ctx % world == 0:
+                return sharded(context)
+            print(f"[test] view_shard: {v_ctx} views not divisible by {world} devices — "
+                  "unsharded encode for this scene", flush=True)
+            return unsharded(context)
     decoder_cfg = cfg.decoder
     if cfg.test.render_capacity_factor is not None:
         decoder_cfg = dataclasses.replace(
@@ -293,22 +338,23 @@ def run_test(
                 flush=True,
             )
 
-        # Frame dumps (FVS split into interpolation/extrapolation dirs).
-        color_np, gt_np = color.cpu().numpy(), gt.cpu().numpy()
-        for vi in range(v):
-            sub = ("extrapolation" if vi >= v - test_fvs else "interpolation"
-                   ) if test_fvs > 0 else "color"
-            _save_image(color_np[vi], out_dir / scene / sub / f"{vi:04}.png")
-            _save_image(gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png")
-        for vi, image in enumerate(context["image"][0].cpu().numpy()):
-            _save_image(image, out_dir / scene / "context" / f"{vi:04}.png")
-        # Depth colormap dumps (reference mw:381-416): the encoder's
-        # context depths and the rendered target depths.
-        if cfg.test.save_depth:
-            for vi, d in enumerate(results["depth_s-1"][0].cpu().numpy()):
-                _save_image(depth_to_color(d), out_dir / scene / "depth_pred" / f"{vi:04}.png")
-            for vi, d in enumerate(depth.cpu().numpy()):
-                _save_image(depth_to_color(d), out_dir / scene / "depth_render" / f"{vi:04}.png")
+        if rank == 0:  # one writer under view_shard
+            # Frame dumps (FVS split into interpolation/extrapolation dirs).
+            color_np, gt_np = color.cpu().numpy(), gt.cpu().numpy()
+            for vi in range(v):
+                sub = ("extrapolation" if vi >= v - test_fvs else "interpolation"
+                       ) if test_fvs > 0 else "color"
+                _save_image(color_np[vi], out_dir / scene / sub / f"{vi:04}.png")
+                _save_image(gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png")
+            for vi, image in enumerate(context["image"][0].cpu().numpy()):
+                _save_image(image, out_dir / scene / "context" / f"{vi:04}.png")
+            # Depth colormap dumps (reference mw:381-416): the encoder's
+            # context depths and the rendered target depths.
+            if cfg.test.save_depth:
+                for sub, maps in (("depth_pred", results["depth_s-1"][0]),
+                                  ("depth_render", depth)):
+                    for vi, d in enumerate(maps.cpu().numpy()):
+                        _save_image(depth_to_color(d), out_dir / scene / sub / f"{vi:04}.png")
         t4 = time.perf_counter()
         record("encoder_s", t1 - t0)
         record("decoder_s_per_view", (t2 - t1) / v)
@@ -317,7 +363,7 @@ def run_test(
 
         # Gaussian point-cloud export (reference encoder visualizer /
         # export pathway; covariances already decomposed by the adapter).
-        if cfg.test.save_ply:
+        if cfg.test.save_ply and rank == 0:
             g = results["gaussians"]
             viz = results["visualizations"]
             export_ply(
@@ -332,7 +378,7 @@ def run_test(
             record("ply_s", time.perf_counter() - t4)
 
         # Trajectory videos (reference mw:654-819).
-        if cfg.test.save_video:
+        if cfg.test.save_video and rank == 0:
             t5 = time.perf_counter()
             vid_args = (
                 decoder_cfg, results["gaussians"], context["extrinsics"][0],
@@ -361,9 +407,10 @@ def run_test(
             ok = np.isfinite(vals)
             if ok.any():
                 summary[key] = float(np.sum(vals[ok] * weights[ok]) / np.sum(weights[ok]))
-    benchmarker.dump(out_dir / "benchmark.json")
-    benchmarker.dump_memory(out_dir / "peak_memory.json")
-    with open(out_dir / "stats.json", "w") as f:
-        json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
+    if rank == 0:
+        benchmarker.dump(out_dir / "benchmark.json")
+        benchmarker.dump_memory(out_dir / "peak_memory.json")
+        with open(out_dir / "stats.json", "w") as f:
+            json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
     print("[test] summary:", json.dumps(summary, indent=2), flush=True)
     return summary

@@ -1,4 +1,4 @@
-"""CLI entry point: training and testing on one device.
+"""CLI entry point: training and testing.
 
 Port of ``freesplat_tpu/main.py``, with the same override surface:
 
@@ -8,8 +8,13 @@ Port of ``freesplat_tpu/main.py``, with the same override surface:
 
 With no dataset on disk, ``dataset.name=synthetic`` trains on the built-in
 synthetic Gaussian scenes.  Runs on the GPU unless ``main`` is asked for
-the CPU (``device="cpu"``).  Not ported yet: more than one device
-(``trainer.devices``).
+the CPU (``device="cpu"``).  Data-parallel training runs one process a
+device, each with its own batch of ``data_loader.batch_size``:
+
+  torchrun --nproc_per_node 2 -m freesplat_tpu_torch.main \
+      +experiment=scannet/2views trainer.devices=auto
+
+(``parallel/distributed.py``; NCCL on the GPU, gloo with ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,14 @@ from .data.view_samplers import (
     ViewSamplerEvaluation,
     ViewSamplerEvaluationCfg,
 )
-from .parallel.distributed import process_rank
+from .parallel.distributed import (
+    group_rank,
+    make_group,
+    maybe_initialize_distributed,
+    process_rank,
+    rank_device,
+    replicate_state,
+)
 from .training.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .training.trainer import TrainCfg, fit, init_state
 from .utils.device import resolve_device
@@ -93,9 +105,12 @@ def make_data_module(cfg: RootCfg, step_fn=None) -> DataModule:
     )
 
 
-def make_batches(cfg: RootCfg, stage: str, step_fn=None, device: str | torch.device = "cuda"):
+def make_batches(cfg: RootCfg, stage: str, step_fn=None, device: str | torch.device = "cuda",
+                 replicated: bool = False):
     """Batches of ``stage``: synthetic ones as tensors on ``device``, scene
-    loaders' as numpy arrays (the train step moves them)."""
+    loaders' as numpy arrays (the train step moves them).  Each process of
+    a multi-process launch streams its own share, or with ``replicated``
+    (the test stage under ``test.view_shard``) every process the same."""
     if cfg.dataset.name == "synthetic":
         # Each process streams distinct scenes: the seed is offset by rank.
         return synthetic_batches(
@@ -103,7 +118,7 @@ def make_batches(cfg: RootCfg, stage: str, step_fn=None, device: str | torch.dev
                 image_shape=cfg.dataset.image_shape,
                 num_context=cfg.dataset.num_context_views,
                 num_target=cfg.dataset.synthetic_num_targets,
-                seed=cfg.data_loader.seed + process_rank()[0],
+                seed=cfg.data_loader.seed + (0 if replicated else process_rank()[0]),
                 cache_batches=cfg.dataset.synthetic_cache_batches,
                 vary_scene=cfg.dataset.synthetic_vary_scene,
                 renderer=cfg.dataset.synthetic_renderer,
@@ -115,15 +130,22 @@ def make_batches(cfg: RootCfg, stage: str, step_fn=None, device: str | torch.dev
         return dm.train_batches()
     if stage == "val":
         return dm.val_batches()
-    return dm.test_batches()
+    return dm.test_batches(replicated=replicated)
 
 
 def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
+    """Train with ``trainer.devices`` data-parallel ranks: under a launcher
+    (torchrun, or JAX's coordinator variables) one process a device, each
+    on ``cuda:LOCAL_RANK`` with its own batch and seed offset by its rank;
+    rank 0 logs, writes checkpoints and validates while the others wait at
+    a barrier, and every rank reads a checkpoint it resumes from."""
     device = resolve_device(device)
-    if str(cfg.trainer.devices) not in ("auto", "1"):
-        raise NotImplementedError(
-            f"trainer.devices={cfg.trainer.devices}: multi-device training is not ported yet"
-        )
+    if maybe_initialize_distributed(device):
+        device = rank_device(device)
+        print(f"torch.distributed: process {process_rank()[0]}/{process_rank()[1]} on "
+              f"{device}", flush=True)
+    group = make_group(cfg.trainer.devices)
+    rank = group_rank(group)[0]
     train_cfg = TrainCfg(
         encoder=cfg.encoder,
         decoder=cfg.decoder,
@@ -144,12 +166,13 @@ def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
                 cfg.checkpointing.load, step, state, strict=cfg.checkpointing.strict
             )
             print(f"restored checkpoint step {step}")
+    replicate_state(state, group)
 
     logger = None
     try:
         from .utils.logger import LocalLogger
 
-        logger = LocalLogger()
+        logger = LocalLogger() if rank == 0 else None
     except Exception:
         pass
 
@@ -161,9 +184,15 @@ def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
 
     val_batches = {"it": None}
 
+    def barrier():
+        if group is not None:
+            torch.distributed.barrier(group=group)
+
     def val_fn(step, state):
         from .training.validation import validation_step
 
+        if rank != 0:
+            return barrier()
         if val_batches["it"] is None:
             val_batches["it"] = make_batches(cfg, "val", device=device)
         batch = next(val_batches["it"])
@@ -173,9 +202,12 @@ def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
             save_projections=cfg.trainer.val_save_projections,
         )
         print(f"val step {step}: psnr={metrics['psnr']:.2f}", flush=True)
+        barrier()
 
     def checkpoint_fn(step, state):
-        save_checkpoint(ckpt_dir, step, state)
+        if rank == 0:
+            save_checkpoint(ckpt_dir, step, state)
+        barrier()
 
     def batch_stream():
         # The bounded sampler reads the step when a batch is drawn and
@@ -200,11 +232,12 @@ def train(cfg: RootCfg, device: str | torch.device = "cuda") -> None:
         batch_stream(),
         cfg.trainer.max_steps,
         lpips=_load_lpips(cfg, device),
-        log_fn=log_fn,
+        log_fn=log_fn if rank == 0 else None,
         checkpoint_fn=checkpoint_fn,
         checkpoint_every=cfg.checkpointing.every_n_train_steps,
         val_fn=val_fn,
         val_every=cfg.trainer.val_check_interval,
+        group=group,
     )
 
 

@@ -12,7 +12,11 @@ it, and each BatchNorm normalizes in float32 and returns it (flax's
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -44,10 +48,19 @@ class BatchNorm(nn.Module):
     the statistics come out of the same reduction that normalizes.  In
     ``eval()`` mode (serving) the buffers are never touched.  A bfloat16
     input is normalized with float32 statistics and parameters and
-    returned in bfloat16."""
+    returned in bfloat16.
+
+    ``group`` (set by ``synced_batch_norm``; None by default): with a
+    process group of more than one rank, batch statistics are those of the
+    global batch, every rank's, as JAX's under a mesh: one differentiable
+    all-reduce of the per-channel count, sum and sum of squares, the
+    variance ``E[x^2] - E[x]^2`` as flax computes it, the running buffers
+    updated from the global statistics.  With no group, or one rank, the
+    path above runs unchanged."""
 
     def __init__(self, ch: int, use_running_average: bool):
         super().__init__()
+        self.group = None
         self.use_running_average = use_running_average
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
@@ -60,6 +73,8 @@ class BatchNorm(nn.Module):
                              self.running_var, self.weight, self.bias,
                              training=False, eps=1e-3)
             return y.permute(0, 2, 3, 1)
+        if self.group is not None and dist.get_world_size(self.group) > 1:
+            return self._global_batch_norm(x)
         if not self.training:
             y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, self.weight,
                              self.bias, training=True, eps=1e-3)
@@ -71,6 +86,40 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_var.mul_(0.9).add_(var_term, alpha=(n - 1) / n)
         return y.permute(0, 2, 3, 1)
+
+    def _global_batch_norm(self, x):
+        from ..parallel.distributed import all_reduce_sum
+
+        xf = x.float().reshape(-1, x.shape[-1])
+        c = xf.shape[1]
+        local = torch.cat([xf.sum(0), (xf * xf).sum(0), xf.new_full((1,), xf.shape[0])])
+        total = all_reduce_sum(local, self.group)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        y = (xf - mean) * (self.weight * torch.rsqrt(var + 1e-3)) + self.bias
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean.detach(), alpha=0.1)
+                self.running_var.mul_(0.9).add_(var.detach(), alpha=0.1)
+        return y.reshape(x.shape).to(x.dtype)
+
+
+@contextlib.contextmanager
+def synced_batch_norm(module: nn.Module, group) -> Iterator[None]:
+    """Inside, every ``BatchNorm`` of ``module`` normalizes with the
+    statistics of ``group``'s global batch (see ``BatchNorm``); None leaves
+    them local.  Restored on exit, so a rank's own work outside (its
+    validation) takes no collective."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.group for m in bns]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, saved):
+            m.group = g
 
 
 class BNAct(nn.Module):

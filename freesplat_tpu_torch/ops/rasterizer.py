@@ -68,11 +68,22 @@ def _tile_grid(image_shape: tuple[int, int]) -> tuple[int, int]:
 
 @torch.no_grad()
 def bin_gaussians(
-    screen: Screen, image_shape: tuple[int, int], capacity: int
+    screen: Screen, image_shape: tuple[int, int], capacity: int,
+    num_local_cols: int | None = None, col_offset: int = 0,
 ) -> TileBinning:
-    """Assign Gaussians to tiles, sorted by (tile, depth)."""
+    """Assign Gaussians to tiles, sorted by (tile, depth).
+
+    ``num_local_cols``/``col_offset`` restrict the binning to the slab of
+    tile columns [col_offset, col_offset + num_local_cols), as the JAX
+    package's: each rank of the sharded render bins its own slab
+    (``parallel/sharded_render.py``).  Tile ids are then row-major over
+    (th, num_local_cols); the rectangles are shifted and clamped to the
+    slab, and the prune measures from the absolute column.  The defaults
+    bin the whole image."""
     th, tw = _tile_grid(image_shape)
-    num_tiles = th * tw
+    if num_local_cols is None:
+        num_local_cols = tw
+    num_tiles = th * num_local_cols
     dev = screen.means2d.device
     n = screen.means2d.shape[0]
     mx = screen.means2d[:, 0]
@@ -80,10 +91,12 @@ def bin_gaussians(
     r = screen.radii
     ok = screen.mask & (r > 0)
 
-    # CUDA getRect: [floor((p - r) / B), floor((p + r + B - 1) / B)), clamped.
-    x0 = torch.clamp(torch.floor((mx - r) / TILE), 0, tw).long()
+    # CUDA getRect: [floor((p - r) / B), floor((p + r + B - 1) / B)), clamped
+    # (the columns to the slab, after the shift by its offset).
+    x0 = torch.clamp(torch.floor((mx - r) / TILE) - col_offset, 0, num_local_cols).long()
     y0 = torch.clamp(torch.floor((my - r) / TILE), 0, th).long()
-    x1 = torch.clamp(torch.floor((mx + r + TILE - 1) / TILE), 0, tw).long()
+    x1 = torch.clamp(torch.floor((mx + r + TILE - 1) / TILE) - col_offset, 0,
+                     num_local_cols).long()
     y1 = torch.clamp(torch.floor((my + r + TILE - 1) / TILE), 0, th).long()
     span_x = x1 - x0
     count = torch.where(ok, span_x * (y1 - y0), 0)
@@ -115,7 +128,7 @@ def bin_gaussians(
     thr = 2.0 * torch.log(
         torch.clamp(screen.opacities[gid], min=1e-12) / (1.0 / 255.0)
     )
-    rx0 = tx.float() * TILE - mxg
+    rx0 = (col_offset + tx).float() * TILE - mxg
     ry0 = ty.float() * TILE - myg
     rx1 = rx0 + (TILE - 1)
     ry1 = ry0 + (TILE - 1)
@@ -139,7 +152,7 @@ def bin_gaussians(
     inside = (rx0 <= 0) & (rx1 >= 0) & (ry0 <= 0) & (ry1 >= 0)
     keep = inside | (qmin <= thr)
 
-    tile = (ty * tw + tx)[keep]
+    tile = (ty * num_local_cols + tx)[keep]
     gid = gid[keep]
     # One stable sort on (tile << 32 | depth bits): kept depths are > 0.2,
     # so their float32 bit patterns order like the floats.
@@ -179,11 +192,15 @@ def build_instance_rows(screen: Screen, binning: TileBinning) -> torch.Tensor:
     return take_rows(packed, binning.sorted_ids)
 
 
-def _pixel_coords(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(num_tiles, P) integer pixel coordinates as float (no +0.5)."""
+def _pixel_coords(num_tiles: int, tiles_x: int, device,
+                  col_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(num_tiles, P) integer pixel coordinates as float (no +0.5) of the
+    tiles row-major over (num_tiles / tiles_x, tiles_x) whose first column
+    is the image's tile column ``col_offset`` (the TPU kernel's
+    ``tw_ref = [tiles_x_local, col_off]``)."""
     t = torch.arange(num_tiles, device=device)[:, None]
     i = torch.arange(P, device=device)[None, :]
-    px = ((t % tiles_x) * TILE + i % TILE).float()
+    px = ((col_offset + t % tiles_x) * TILE + i % TILE).float()
     py = ((t // tiles_x) * TILE + i // TILE).float()
     return px, py
 
@@ -194,6 +211,7 @@ def composite_tiles_plain(
     tile_count: torch.Tensor,  # (num_tiles,) i32
     tiles_x: int,
     count_pairs: bool = False,
+    col_offset: int = 0,
 ):
     """Plain PyTorch version of ``csrc/rasterize_fwd.cu``.
 
@@ -204,10 +222,11 @@ def composite_tiles_plain(
     (the backward's residual).  With ``count_pairs`` a third element
     counts the (pixel, instance) pairs evaluated before termination, and
     of those the pairs blended and the pairs that terminated a pixel:
-    (evaluated, blended, stopped)."""
+    (evaluated, blended, stopped).  ``col_offset``: the image tile column
+    of the first of the ``tiles_x`` columns (``_pixel_coords``)."""
     num_tiles = tile_start.shape[0]
     dev = inst.device
-    px, py = _pixel_coords(num_tiles, tiles_x, dev)
+    px, py = _pixel_coords(num_tiles, tiles_x, dev, col_offset)
     cnt = torch.clamp(tile_count.long(), max=MAX_TILE_INSTANCES)
     start = tile_start.long()
     log_t = torch.zeros(num_tiles, P, device=dev)
@@ -252,6 +271,7 @@ def composite_tiles_plain_bwd(
     walk: torch.Tensor,  # (num_tiles, P) i32 forward residual
     grad: torch.Tensor,  # (num_tiles, P, 5) cotangent of ``out``
     count_pairs: bool = False,
+    col_offset: int = 0,
 ):
     """Plain PyTorch version of ``csrc/rasterize_bwd.cu``: d loss / d inst.
 
@@ -266,10 +286,11 @@ def composite_tiles_plain_bwd(
     alpha_u <= 0.99 (zero subgradient of the clamp).  The per-instance sums
     over the tile's pixels give the (k, 10) rows; rows no pixel reached
     are zero.  With ``count_pairs`` also returns the (pixel, instance)
-    pairs walked and, of those, the pairs that contributed."""
+    pairs walked and, of those, the pairs that contributed.
+    ``col_offset`` as in the forward."""
     num_tiles = tile_start.shape[0]
     dev = inst.device
-    px, py = _pixel_coords(num_tiles, tiles_x, dev)
+    px, py = _pixel_coords(num_tiles, tiles_x, dev, col_offset)
     cnt = torch.clamp(tile_count.long(), max=MAX_TILE_INSTANCES)
     start = tile_start.long()
     g0, g1, g2, g3, g_logt = grad.unbind(-1)
@@ -345,6 +366,7 @@ def warp_cull_mask_plain(
     tile_start: torch.Tensor,  # (num_tiles,) i32
     tile_count: torch.Tensor,  # (num_tiles,) i32
     tiles_x: int,
+    col_offset: int = 0,
 ) -> torch.Tensor:
     """(k, 8) bool: may instance row r pass the cut at any pixel of warp w?
 
@@ -356,7 +378,7 @@ def warp_cull_mask_plain(
     field, a conic not positive definite, K > 2^18, a mean or an extent
     beyond 1e6 px), none where op < ALPHA_MIN (the header has the proof)."""
     tile = _row_tiles(tile_start, tile_count, inst.shape[0])
-    x0 = ((tile % tiles_x) * TILE).float()
+    x0 = ((col_offset + tile % tiles_x) * TILE).float()
     y0 = ((tile // tiles_x) * TILE).float()
     mx, my, a, b, c, op = inst[:, :6].unbind(1)
     finite = torch.isfinite(inst[:, :6]).all(1)
@@ -390,6 +412,7 @@ def warp_steps_plain(
     tile_count: torch.Tensor,  # (num_tiles,) i32
     tiles_x: int,
     walk: torch.Tensor,  # (num_tiles, P) i32 forward residual
+    col_offset: int = 0,
 ) -> dict:
     """The (warp, instance) steps each kernel makes on these inputs, with
     and without the per-warp cull (``warp_cull_mask_plain``), counted by
@@ -407,10 +430,10 @@ def warp_steps_plain(
       warp makes with the cull (its serial chain; the block's warps run
       side by side).
     Also the tile instance count and the per-tile largest walk, max and
-    mean."""
+    mean.  ``col_offset`` as in the kernels."""
     num_tiles = tile_start.shape[0]
     dev = inst.device
-    px, py = _pixel_coords(num_tiles, tiles_x, dev)
+    px, py = _pixel_coords(num_tiles, tiles_x, dev, col_offset)
     cnt = torch.clamp(tile_count.long(), max=MAX_TILE_INSTANCES)
     start = tile_start.long()
     walk = walk.long()
@@ -432,7 +455,7 @@ def warp_steps_plain(
         reducing = reducing + (passed & (j < walk))[:, lanes].any(-1).sum()
     fwd_end = end[:, lanes].amax(-1)  # (num_tiles, 8)
     bwd_end = walk[:, lanes].amax(-1)
-    mask = warp_cull_mask_plain(inst, tile_start, tile_count, tiles_x).long()
+    mask = warp_cull_mask_plain(inst, tile_start, tile_count, tiles_x, col_offset).long()
     csum = torch.cat([torch.zeros(1, NWARP, dtype=torch.long, device=dev), mask.cumsum(0)])
 
     def culled(stop_at):  # set mask bits of each (tile, warp) below stop_at
@@ -467,17 +490,20 @@ def _kernel_entry(name: str):
     fn.restype = ctypes.c_int
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = {
-        # inst, tile_start, tile_count, num_tiles, tiles_x, out, walk, stream
-        "rasterize_fwd": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr],
-        # inst, tile_start, tile_count, num_tiles, tiles_x, fwd_out, walk,
-        # cot, dinst, stream
-        "rasterize_bwd": [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr],
+        # inst, tile_start, tile_count, num_tiles, tiles_x, col_offset, out,
+        # walk, stream
+        "rasterize_fwd": [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr],
+        # inst, tile_start, tile_count, num_tiles, tiles_x, col_offset,
+        # fwd_out, walk, cot, dinst, stream
+        "rasterize_bwd": [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr],
     }[name]
     return fn
 
 
-def _check(name: str, inst: torch.Tensor, tiles_x: int, **tensors) -> None:
+def _check(name: str, inst: torch.Tensor, tiles_x: int, col_offset: int, **tensors) -> None:
     """Device, dtype, contiguity and shapes of a kernel's arguments."""
+    if col_offset < 0:
+        raise ValueError(f"{name}: col_offset must be >= 0, got {col_offset}")
     num_tiles = tensors["tile_start"].shape[0]
     shapes = {
         "tile_start": ((num_tiles,), torch.int32),
@@ -525,18 +551,24 @@ def composite_tiles_fwd(
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
     tiles_x: int,
+    col_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (num_tiles, P, 5), walk (num_tiles, P) int32): CUDA tensors
     launch the ``rasterize_fwd`` kernel (and count the launch), CPU tensors
-    take ``composite_tiles_plain``."""
+    take ``composite_tiles_plain``.  ``col_offset``: the image tile column
+    of the first of the ``tiles_x`` columns (a slab of the sharded
+    render; 0 for a whole image)."""
     if not _kernel_device("rasterize_fwd", inst):
-        return composite_tiles_plain(inst, tile_start, tile_count, tiles_x)
-    _check("rasterize_fwd", inst, tiles_x, tile_start=tile_start, tile_count=tile_count)
+        return composite_tiles_plain(inst, tile_start, tile_count, tiles_x,
+                                     col_offset=col_offset)
+    _check("rasterize_fwd", inst, tiles_x, col_offset, tile_start=tile_start,
+           tile_count=tile_count)
     num_tiles = tile_start.shape[0]
     out = torch.empty((num_tiles, P, OUT_CH), dtype=torch.float32, device=inst.device)
     walk = torch.empty((num_tiles, P), dtype=torch.int32, device=inst.device)
     _launch("rasterize_fwd", inst.device, inst.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), num_tiles, tiles_x, out.data_ptr(), walk.data_ptr())
+            tile_count.data_ptr(), num_tiles, tiles_x, col_offset, out.data_ptr(),
+            walk.data_ptr())
     return out, walk
 
 
@@ -548,17 +580,19 @@ def composite_tiles_bwd(
     out: torch.Tensor,
     walk: torch.Tensor,
     grad: torch.Tensor,
+    col_offset: int = 0,
 ) -> torch.Tensor:
     """d loss / d inst (k, 10): CUDA tensors launch the ``rasterize_bwd``
     kernel (and count the launch), CPU tensors take
-    ``composite_tiles_plain_bwd``."""
+    ``composite_tiles_plain_bwd``.  ``col_offset`` as in the forward."""
     if not _kernel_device("rasterize_bwd", inst):
-        return composite_tiles_plain_bwd(inst, tile_start, tile_count, tiles_x, out, walk, grad)
-    _check("rasterize_bwd", inst, tiles_x, tile_start=tile_start, tile_count=tile_count,
-           out=out, walk=walk, grad=grad)
+        return composite_tiles_plain_bwd(inst, tile_start, tile_count, tiles_x, out, walk, grad,
+                                         col_offset=col_offset)
+    _check("rasterize_bwd", inst, tiles_x, col_offset, tile_start=tile_start,
+           tile_count=tile_count, out=out, walk=walk, grad=grad)
     dinst = torch.empty_like(inst)
     _launch("rasterize_bwd", inst.device, inst.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), tile_start.shape[0], tiles_x, out.data_ptr(),
+            tile_count.data_ptr(), tile_start.shape[0], tiles_x, col_offset, out.data_ptr(),
             walk.data_ptr(), grad.data_ptr(), dinst.data_ptr())
     return dinst
 
@@ -567,18 +601,19 @@ class _CompositeTiles(torch.autograd.Function):
     """The TPU package's custom_vjp around its two Pallas kernels."""
 
     @staticmethod
-    def forward(ctx, inst, tile_start, tile_count, tiles_x):
-        out, walk = composite_tiles_fwd(inst, tile_start, tile_count, tiles_x)
+    def forward(ctx, inst, tile_start, tile_count, tiles_x, col_offset):
+        out, walk = composite_tiles_fwd(inst, tile_start, tile_count, tiles_x,
+                                        col_offset=col_offset)
         ctx.save_for_backward(inst, tile_start, tile_count, out, walk)
-        ctx.tiles_x = tiles_x
+        ctx.tiles_x, ctx.col_offset = tiles_x, col_offset
         return out
 
     @staticmethod
     def backward(ctx, grad):
         inst, tile_start, tile_count, out, walk = ctx.saved_tensors
         dinst = composite_tiles_bwd(inst, tile_start, tile_count, ctx.tiles_x, out, walk,
-                                    grad.contiguous())
-        return dinst, None, None, None
+                                    grad.contiguous(), col_offset=ctx.col_offset)
+        return dinst, None, None, None, None
 
 
 def composite_tiles(
@@ -586,13 +621,15 @@ def composite_tiles(
     tile_start: torch.Tensor,
     tile_count: torch.Tensor,
     tiles_x: int,
+    col_offset: int = 0,
 ) -> torch.Tensor:
     """Composite every tile: (num_tiles, P, 5) = r, g, b, depth, log T.
 
     Differentiable in ``inst``: the forward is ``composite_tiles_fwd``, the
     backward ``composite_tiles_bwd`` (the CUDA kernels on CUDA tensors,
-    their plain versions on CPU tensors)."""
-    return _CompositeTiles.apply(inst, tile_start, tile_count, tiles_x)
+    their plain versions on CPU tensors).  The tiles are row-major over
+    (num_tiles / tiles_x, tiles_x) from image tile column ``col_offset``."""
+    return _CompositeTiles.apply(inst, tile_start, tile_count, tiles_x, col_offset)
 
 
 def rasterize(
@@ -624,7 +661,6 @@ def _rasterize(composite, means, covariances, harmonics, opacities, extrinsics,
                intrinsics, image_shape, background, sh_degree, capacity, return_stats):
     """``rasterize`` with the compositor ``composite`` (``composite_tiles``,
     or a function of the same signature that a probe holds against it)."""
-    h, w = image_shape
     if capacity is None:
         capacity = render_capacity(means.shape[0], 3.0)
     capacity = -(-capacity // CHUNK) * CHUNK
@@ -635,15 +671,29 @@ def _rasterize(composite, means, covariances, harmonics, opacities, extrinsics,
     )
     binning = bin_gaussians(screen, image_shape, capacity)
     inst = build_instance_rows(screen, binning)
-    th, tw = _tile_grid(image_shape)
+    tw = _tile_grid(image_shape)[1]
     out = composite(inst, binning.tile_start, binning.tile_count, tw)
-
-    img = out.reshape(th, tw, TILE, TILE, OUT_CH).permute(0, 2, 1, 3, 4)
-    img = img.reshape(th * TILE, tw * TILE, OUT_CH)[:h, :w]
-    t_final = torch.exp(img[..., 4])
-    color = img[..., 0:3] + t_final[..., None] * background
-    depth = img[..., 3]
+    color, depth, alpha = finish_image(tiles_to_image(out, tw), image_shape, background)
     if return_stats:
         stats = {"dropped": binning.dropped, "num_instances": binning.num_instances}
-        return color, depth, 1.0 - t_final, stats
-    return color, depth, 1.0 - t_final
+        return color, depth, alpha, stats
+    return color, depth, alpha
+
+
+def tiles_to_image(out: torch.Tensor, tiles_x: int) -> torch.Tensor:
+    """The compositor's (num_tiles, P, 5) tiles, row-major over
+    (num_tiles / tiles_x, tiles_x), as one (th * 16, tiles_x * 16, 5)
+    image (or slab of one)."""
+    th = out.shape[0] // tiles_x
+    img = out.reshape(th, tiles_x, TILE, TILE, OUT_CH).permute(0, 2, 1, 3, 4)
+    return img.reshape(th * TILE, tiles_x * TILE, OUT_CH)
+
+
+def finish_image(img: torch.Tensor, image_shape: tuple[int, int], background: torch.Tensor):
+    """(color, depth, alpha) of the composited image ``img`` (padded to
+    whole tiles): cropped, the background behind the final transmittance."""
+    h, w = image_shape
+    img = img[:h, :w]
+    t_final = torch.exp(img[..., 4])
+    color = img[..., 0:3] + t_final[..., None] * background
+    return color, img[..., 3], 1.0 - t_final

@@ -1,9 +1,12 @@
 """Training runtime: the train step and its host loop.
 
-Port of ``freesplat_tpu/training/trainer.py`` (single device; no mesh):
-one ``train_step`` (encoder -> render -> loss -> backward -> global-norm
-clip -> Adam at the scheduled learning rate) and ``fit``, the host loop
-with the same callbacks, logging interval and dropped-instance warning.
+Port of ``freesplat_tpu/training/trainer.py``: one ``train_step``
+(encoder -> render -> loss -> backward -> global-norm clip -> Adam at the
+scheduled learning rate) and ``fit``, the host loop with the same
+callbacks, logging interval and dropped-instance warning.  Data
+parallelism (JAX's mesh) takes a process group: each rank steps on its
+own batch, and the gradients are averaged over the ranks before the clip
+(``make_train_step``).
 
 The state is a dict: ``encoder`` (the module in ``train()`` mode; its
 parameters and BN running buffers are the JAX state's ``params`` and
@@ -19,9 +22,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Mapping
 
 import torch
+import torch.distributed as dist
 
+from ..models.backbone import synced_batch_norm
 from ..models.decoder import DecoderCfg, render_views
 from ..models.encoder import EncoderFreeSplatCfg, make_encoder
+from ..parallel.distributed import group_rank
 from .losses import LossCfg, total_loss
 from .metrics import compute_psnr
 from .schedule import OptimizerCfg, clip_grad_global_norm, make_optimizer, make_schedule
@@ -78,9 +84,23 @@ def deterministic_cudnn() -> Iterator[None]:
 
 
 def make_train_step(
-    cfg: TrainCfg, lpips: torch.nn.Module | None = None
+    cfg: TrainCfg, lpips: torch.nn.Module | None = None, group=None,
 ) -> Callable[..., tuple[dict, dict]]:
     """``train_step(state, batch, timings=None) -> (state, metrics)``.
+
+    ``group``: None (one process) or a process group of data-parallel
+    ranks, each stepping on its own batch (the global batch is their
+    concatenation, as under JAX's mesh).  Then batch-statistics BN
+    normalizes over the global batch (``models/backbone.py::BatchNorm``),
+    one all-reduce (SUM, then / world) of the flattened gradients follows
+    ``loss.backward()`` and precedes the clip, which so sees the global
+    gradient (JAX's ``psum``), and the metrics are all-reduced: every
+    metric averaged over the ranks but ``dropped_instances``, summed.
+    Every rank then takes the same Adam step from the same state.  Not
+    ``DistributedDataParallel``: its bucketed all-reduce changes the
+    gradient sums' order, and its buffer broadcast from rank 0 would
+    overwrite the BN running buffers that the global statistics update
+    alike on every rank.
 
     ``lpips``: None (no LPIPS term, as in the JAX package) or an ``LPIPS``
     module on the state's device (``lpips.make_lpips``).
@@ -90,6 +110,7 @@ def make_train_step(
     step "forward_s", "backward_s" and "optimizer_s" (host clock around
     synchronized device work; the syncs cost the step its overlap)."""
     schedule = make_schedule(cfg.optimizer)
+    world = group_rank(group)[1]
     dc = cfg.loss.depth
     depth_on = dc is not None and bool(
         dc.ms_gradient_weight or dc.scale_invariant_weight or dc.normals_weight
@@ -108,7 +129,8 @@ def make_train_step(
         if timings is not None:
             _sync(device)
         t0 = time.perf_counter()
-        results = encoder(context)
+        with synced_batch_norm(encoder, group):
+            results = encoder(context)
         output = render_views(
             cfg.decoder, results["gaussians"], target["extrinsics"],
             target["intrinsics"], target["near"], target["far"], (h, w),
@@ -140,9 +162,11 @@ def make_train_step(
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            _all_reduce_mean([p.grad for p in params], group, world)
         clip_grad_global_norm([p.grad for p in params], cfg.optimizer.gradient_clip_val)
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(step)
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = schedule(step)
         optimizer.step()
         if timings is not None:
             _sync(device)
@@ -162,9 +186,33 @@ def make_train_step(
                 "dropped_instances": output.dropped.sum(),
                 **{f"loss_{k}": v.detach() for k, v in parts.items()},
             }
+            if group is not None:
+                metrics = _reduce_metrics(metrics, group, world)
         return {**state, "step": step + 1}, metrics
 
     return train_step
+
+
+def _all_reduce_mean(grads: list[torch.Tensor], group, world: int) -> None:
+    """In place: each gradient summed over the ranks and divided by
+    ``world``, in one all-reduce of the flattened vector."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _reduce_metrics(metrics: dict, group, world: int) -> dict:
+    """The ranks' metrics in one all-reduce: ``dropped_instances`` summed,
+    the others averaged (float64 on the wire, each back in its dtype)."""
+    keys = list(metrics)  # the same order on every rank
+    flat = torch.stack([metrics[k].double() for k in keys])
+    dist.all_reduce(flat, group=group)
+    return {k: (v if k == "dropped_instances" else v / world).to(metrics[k].dtype)
+            for k, v in zip(keys, flat)}
 
 
 @deterministic_cudnn()
@@ -180,6 +228,7 @@ def fit(
     val_fn: Callable[[int, dict], None] | None = None,
     val_every: int = 5_000,
     timings: dict[str, list[float]] | None = None,
+    group=None,
 ) -> dict:
     """Host training loop (the Lightning-fit equivalent).
 
@@ -187,8 +236,12 @@ def fit(
     next log point the values are on the host side of the pipeline, so
     reading them does not stall the device.  ``timings`` is passed to
     every step (see ``make_train_step``).  The loop, its validation and
-    checkpoints included, runs under ``deterministic_cudnn``."""
-    train_step = make_train_step(cfg, lpips)
+    checkpoints included, runs under ``deterministic_cudnn``.  ``group``:
+    data-parallel ranks (``make_train_step``); every rank runs the loop,
+    and the callbacks decide what each rank does (``main.train``: rank 0
+    logs, checkpoints and validates)."""
+    train_step = (make_train_step(cfg, lpips) if group is None
+                  else make_train_step(cfg, lpips, group=group))
     step = int(state["step"])
     pending: tuple[int, dict, float] | None = None  # (step, metrics, seconds)
 

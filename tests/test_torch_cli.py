@@ -279,14 +279,21 @@ def write_replica_scene(root, n=12, seed=3):
     return index
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    """More than one device raises; ``re10k`` and ``replica`` are ported:
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """Everything here is ported and runs.  ``trainer.devices`` (multi-
+    device training): ``trainer.devices=1`` trains one step in this
+    process, and ``trainer.devices=2`` asks for a launch of two processes
+    (torchrun), so one process raises naming its world size; the 2-rank
+    run is in ``tests/test_torch_ddp.py``.  ``re10k`` and ``replica``:
     ``main`` evaluates the first scene of the RE10K 2-view index from a
     chunk of 360x640 JPEGs, and a Replica scene with the preset's defaults
     (the FVS-split stats and frames)."""
     from tests.test_torch_re10k import INDEX, write_index_scene_chunk
 
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    monkeypatch.chdir(tmp_path)  # the logger writes under outputs/local
+    tmain.main([*SMALL, "trainer.devices=1", "trainer.max_steps=1"], device="cpu")
+    assert "train step 0: loss=" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="world size is 1.*torchrun --nproc_per_node 2"):
         tmain.main([*SMALL, "trainer.devices=2"], device="cpu")
     key = write_index_scene_chunk(tmp_path / "re10k")
     tmain.main(["+experiment=re10k/2views", "mode=test", f"dataset.roots=[{tmp_path / 're10k'}]",

@@ -87,14 +87,14 @@ def test_cli_probe_and_data_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_run_test_refuses_unported_options(tmp_path):
-    """``view_shard`` (multi-device) is not ported and raises; the preset's
-    defaults (``save_depth``, ``eval_depth``) run and write the stats
-    files, and so do ``encode_view_chunk``, ``save_ply`` and
-    ``save_video`` (ported)."""
+    """Every option is ported and runs: the preset's defaults
+    (``save_depth``, ``eval_depth``) write the stats files, and so do
+    ``encode_view_chunk``, ``save_ply``, ``save_video`` and ``view_shard``
+    (in one process it takes the unsharded encode; its 2-rank runs are in
+    ``tests/test_torch_view_shard.py``)."""
     base = ["+experiment=scannet/2views", f"test.output_path={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="test.view_shard"):
-        run_test(load_config([*base, "test.view_shard=true"]), batches=iter([]), device="cpu")
-    for option in ("test.encode_view_chunk=4", "test.save_ply=true", "test.save_video=true"):
+    for option in ("test.encode_view_chunk=4", "test.save_ply=true", "test.save_video=true",
+                   "test.view_shard=true"):
         assert run_test(load_config([*base, option]), batches=iter([]), device="cpu") == {}
     assert run_test(load_config(base), batches=iter([]), device="cpu") == {}
     assert {p.name for p in tmp_path.iterdir()} == {"benchmark.json", "peak_memory.json",
