@@ -1,6 +1,17 @@
 """Drive the PyTorch port on an NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--baseline DIR]
+    python3 chip_smoke.py --proof overfit [--steps 5000] [--keep DIR]
+    python3 chip_smoke.py --proof generalization [--steps N] [--scenes 20] [--keep DIR]
+
+Each phase prints ``[phase] <name> start`` and ``[phase] <name> ok
+<seconds>``; a phase that raises prints ``[fail] <name>: <type>:
+<message>`` and the traceback's last frame, and the run exits non-zero.
+``--proof`` runs one quality proof at its published size instead of the
+checks (``proof_overfit``, ``proof_generalization``): the curve beside
+the JAX package's (``docs/evidence/``), the gates the smoke phases hold
+(``check_overfit``, ``check_generalization``) and the scripts' bars, and
+with ``--keep`` the curve and stats files copied into DIR.
 
 1. Requires a CUDA device; prints the card (nvidia-smi name and power
    limit), the torch/CUDA versions and the TF32 flags.
@@ -76,7 +87,7 @@
    geometry, B trunk per chunk, C1 PTF, C2 head), render ms a view,
    num_gaussians, gs_ratio, dropped and the peak memory; one forward
    launch a target view; bfloat16's warm encode beside float32's.  The
-   witness: the first 10 views of the first scene encoded again on the
+   witness: the first 5 views of the first scene encoded again on the
    card and, with the same weights, on the host CPU, in both dtypes;
    ``depth_s-1`` held within WITNESS_LIMITS (card against host, bfloat16
    against float32).  The forward kernel
@@ -151,7 +162,36 @@
    and depth within 1e-4 (bit-equal expected).  ``scaling_bench`` at
    world size 1.  Launches by path: ``multi_data``, ``multi_train``,
    ``multi_val``, ``sharded_render``, ``whole_scene_sharded``.
-15. Prints the kernel table as one JSON line, the card line, and last
+15. Quality proofs at smoke depth.  ``[overfit]``:
+   ``scripts/overfit_proof.py --steps 200 --val-every 100`` at 384x512 in
+   a temporary directory: every logged metric finite and nothing dropped
+   at any logged step, the train PSNR at step 200 at least 30 dB, the
+   test summary with the JAX evidence's keys (and ``dropped_instances``),
+   gs_ratio < 1; launches by path
+   ``overfit_data``/``overfit_train``/``overfit_val``/``overfit_test``;
+   at a target view of the step-200 Gaussians the forward kernel
+   bit-equal to plain and the backward within 2e-4 scaled.
+   ``[generalization]``: ``scripts/generalization_proof.py train --steps
+   100`` at 192x256, then ``eval --scenes 3``: every leg finite, the
+   report in the JAX evidence's structure, ``nearest_context`` within
+   1e-4 of a float64 numpy recomputation on the host (pose distances,
+   PSNR and a Gaussian-window SSIM); launches by path ``gen_data``,
+   ``gen_train``, ``gen_eval``.
+16. ``[profile]``: ``scripts/whole_scene_profile.py`` at 30 views x
+   384x512 in chunks of 15, a cold rep and a warm one inside
+   ``utils/profiling.trace`` (the phases, the device's busy share and the
+   ten device operations with the most time; the trace file written);
+   ``scripts/profile_stages.py raster raster_sub train`` and
+   ``scripts/bench_suite.py raster encoder train2`` (lines relayed).
+   Launches by path ``profile_ws``, ``profile_stages``, ``bench_suite``.
+17. ``[offline]``: ``scripts/compute_metrics.py`` over the serving
+   phase's PNG dumps (each scene's PSNR and SSIM within 1e-4 of
+   ``compute_psnr``/``compute_ssim`` on the host over the PNGs read back,
+   ``run_test``'s unquantized numbers beside); ``scripts/
+   generate_evaluation_index.py`` on the ScanNet-layout scene of phase 10
+   (poses on a turning track), the same JSON on the card and the host;
+   ``videoize_index``; ``scripts/test_splatter.py`` (24 PNGs and a GIF).
+18. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -212,8 +252,9 @@ WS_DEPTH = 128  # whole scene: depth planes
 WITNESS_LIMITS = {"card_vs_host_f32": 1e-2, "card_vs_host_bf16": 0.2, "card_bf16_vs_f32": 0.15}
 # The witness encodes this many of the whole scene's views (one trunk
 # chunk) on the host: host encodes of all 30 views took 216 and 278 s on
-# the H100's host (PERF.md section 6), too much of the call's time.
-WITNESS_VIEWS = 10
+# the H100's host, of 10 views 60 and 80 s (PERF.md section 6), too much
+# of the call's time once the quality proofs joined it.
+WITNESS_VIEWS = 5
 FVT_STEPS = 2  # scannet/fvt fit steps
 DET_STEPS = 3  # steps of each seeded fit in the determinism check
 DET_TURNS = 2  # rounds of the four timed arms, each forward then backward
@@ -751,6 +792,10 @@ def slice_run():
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
         check_test_outputs(out, summary, launches, views, "serving")
+        if SERVE_DUMPS is not None:
+            import shutil
+
+            shutil.copytree(out, SERVE_DUMPS, dirs_exist_ok=True)
     if not ("ssim" in summary and "lpips" in summary):
         raise AssertionError(f"serving summary lacks the plain scenes' metrics: {sorted(summary)}")
     split = {k: [round(1e3 * t, 2) for t in timings[k]]
@@ -1605,13 +1650,14 @@ class _Tee(io.TextIOBase):
 
 
 @contextlib.contextmanager
-def counted_main(prefix: str):
+def counted_main(prefix: str, test_path: bool = False):
     """Inside, ``main``'s batch streams, validations and checkpoint
     restores are wrapped, and ``run(argv)`` calls ``main`` once (or
     ``entry(argv, device=...)``, a script that calls ``main``).  Launches
     are split by path: ``<prefix>_data`` while a batch is drawn,
-    ``<prefix>_val`` inside ``validation_step``, ``<prefix>_train`` the
-    rest of the run.  A restored state is held against the checkpoint it
+    ``<prefix>_val`` inside ``validation_step``, with ``test_path``
+    ``<prefix>_test`` inside ``main.test`` (but its batch draws),
+    ``<prefix>_train`` the rest of the run.  A restored state is held against the checkpoint it
     was read from (``run.restored`` lists the restores).  ``run`` returns
     (batches drawn, validations, launches by path, what ``main`` printed,
     wall seconds)."""
@@ -1620,8 +1666,10 @@ def counted_main(prefix: str):
     from freesplat_tpu_torch.training import checkpoint as C
     from freesplat_tpu_torch.training import validation as V
 
-    data, train, val = (f"{prefix}_{p}" for p in ("data", "train", "val"))
+    data, train, val, test = (f"{prefix}_{p}" for p in ("data", "train", "val", "test"))
     by_path: dict[str, dict] = {data: {}, train: {}, val: {}}
+    if test_path:
+        by_path[test] = {}
     draws, vals, restored = [0], [0], []
 
     def add(path, before):
@@ -1630,6 +1678,7 @@ def counted_main(prefix: str):
             by_path[path][k] = by_path[path].get(k, 0) + now[k] - before[k]
 
     orig_batches, orig_val, orig_restore = M.make_batches, V.validation_step, M.restore_checkpoint
+    orig_test = M.test
 
     def counted_batches(*a, **kw):
         it = orig_batches(*a, **kw)
@@ -1651,6 +1700,14 @@ def counted_main(prefix: str):
         out = orig_val(*a, **kw)
         add(val, before)
         vals[0] += 1
+        return out
+
+    def counted_test(*a, **kw):
+        before, drawn = launch_counts(), dict(by_path[data])
+        out = orig_test(*a, **kw)
+        add(test, before)
+        for k, v in by_path[data].items():  # the test's batch draws stay data
+            by_path[test][k] -= v - drawn.get(k, 0)
         return out
 
     def checked_restore(directory, step, state, strict=True):
@@ -1680,18 +1737,22 @@ def counted_main(prefix: str):
         wall = time.perf_counter() - t0
         total = launch_counts()
         for k in total:
-            by_path[train][k] = total[k] - by_path[data].get(k, 0) - by_path[val].get(k, 0)
+            by_path[train][k] = total[k] - sum(c.get(k, 0) for p, c in by_path.items()
+                                               if p != train)
         return draws[0], vals[0], {p: dict(v) for p, v in by_path.items()}, \
             tee.buf.getvalue(), wall
 
     run.restored = restored
     M.make_batches, V.validation_step, M.restore_checkpoint = (
         counted_batches, counted_val, checked_restore)
+    if test_path:
+        M.test = counted_test
     try:
         yield run
     finally:
         M.make_batches, V.validation_step, M.restore_checkpoint = (
             orig_batches, orig_val, orig_restore)
+        M.test = orig_test
 
 
 def _sum_paths(runs) -> dict:
@@ -2895,6 +2956,603 @@ def profile_window(fn, label):
         log(f"[profile]   {sum(v):9.3f} ms  x{len(v):<5d} {name[:90]}")
 
 
+JAX_OVERFIT_CURVE = ROOT / "docs" / "evidence" / "overfit" / "metrics_384x512_r3.jsonl"
+JAX_GENERALIZATION = ROOT / "docs" / "evidence" / "generalization" / "stats.json"
+# The overfit proof's bar (freesplat_tpu/scripts/overfit_proof.py:9-13):
+# test PSNR >= 35 dB with gs_ratio < 1, from 1,000 steps on.
+OVERFIT_BAR_DB = 35.0
+# The generalization proof's nearest-context leg depends on the data alone:
+# the port's 20 held-out scenes against the JAX package's 18.1254 dB.
+NEAREST_TOL_DB = 0.05
+
+
+def _jsonl(path: Path) -> list[dict]:
+    return [json.loads(x) for x in Path(path).read_text().splitlines() if x.strip()]
+
+
+def jax_overfit_curve() -> dict[int, dict]:
+    """The JAX package's overfit log by step.  The file holds the proof's
+    run, resumed once at step 300, and three short runs logged between;
+    the first record of each step is the proof's."""
+    curve: dict[int, dict] = {}
+    for r in _jsonl(JAX_OVERFIT_CURVE):
+        curve.setdefault(r["step"], r)
+    return curve
+
+
+def _keep(keep: Path | None, files: dict) -> None:
+    """Copy ``files`` ({name: path}) into the directory ``keep``, if given."""
+    import shutil
+
+    if keep is None:
+        return
+    keep.mkdir(parents=True, exist_ok=True)
+    for name, path in files.items():
+        if Path(path).exists():
+            shutil.copy(path, keep / name)
+
+
+@contextlib.contextmanager
+def proof_dir():
+    """A temporary working directory for a proof script, yielded as a
+    path: ``main``'s logger writes ``outputs/local/metrics.jsonl`` under
+    the working directory (read back by ``logged_curve``)."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            yield Path(tmp)
+        finally:
+            os.chdir(cwd)
+
+
+def logged_curve(tmp: Path) -> list[dict]:
+    return _jsonl(tmp / "outputs" / "local" / "metrics.jsonl")
+
+
+def check_overfit(curve: list[dict], stats: dict) -> dict:
+    """The overfit proof's gates, in ``[overfit]`` and ``--proof
+    overfit``: every logged metric finite and nothing dropped at any
+    logged step; the train PSNR at step OVERFIT_GATE_STEP at least
+    OVERFIT_MIN_PSNR; the test summary with the JAX evidence's keys,
+    finite, nothing dropped and gs_ratio < 1.  Returns the summary."""
+    jax_keys = json.loads((JAX_OVERFIT_CURVE.parent / "stats_384x512_r3.json").read_text())[
+        "summary"].keys()
+    for r in curve:
+        if not all(math.isfinite(v) for v in r.values()) or r["dropped_instances"]:
+            raise AssertionError(f"[overfit] step {r['step']}: {r}")
+    gated = [r["psnr"] for r in curve if r["step"] == OVERFIT_GATE_STEP]
+    if gated != [] and gated[0] < OVERFIT_MIN_PSNR:
+        raise AssertionError(f"[overfit] train psnr {gated[0]} at step {OVERFIT_GATE_STEP} < "
+                             f"{OVERFIT_MIN_PSNR}")
+    summary = stats["summary"]
+    if summary.keys() != set(jax_keys) | {"dropped_instances"} or len(stats["per_scene"]) != 1:
+        raise AssertionError(f"[overfit] stats.json keys {sorted(summary)}")
+    if not all(math.isfinite(v) for v in summary.values()) or summary["dropped_instances"] \
+            or not summary["gs_ratio"] < 1:
+        raise AssertionError(f"[overfit] test summary {summary}")
+    return summary
+
+
+def check_generalization(report: dict) -> dict:
+    """The generalization report's gates, in ``[generalization]`` and
+    ``--proof generalization``: the JAX evidence's structure (keys, the
+    protocol's keys and each leg's) and finite legs.  Returns the legs."""
+    jax_report = json.loads(JAX_GENERALIZATION.read_text())
+    legs = {k: report[k] for k in ("trained", "untrained", "nearest_context")}
+    if report.keys() != jax_report.keys() or report["protocol"].keys() != \
+            jax_report["protocol"].keys() or any(report[k].keys() != jax_report[k].keys()
+                                                 for k in legs):
+        raise AssertionError(f"[generalization] stats.json structure {list(report)}")
+    if not all(math.isfinite(v) for leg in legs.values() for v in leg.values()):
+        raise AssertionError(f"[generalization] non-finite legs {legs}")
+    return legs
+
+
+def overfit_bf16_depth(ckpt: Path, h: int, w: int) -> dict:
+    """The trained checkpoint's encoder in float32 and in bfloat16 on the
+    overfit scene's context views (the cached scene the proof trains and
+    tests on): ``depth_s-1``'s relative L2 of bfloat16 against float32,
+    over both views and in the worse one."""
+    import torch
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.training.checkpoint import latest_step, load_checkpoint
+
+    step = latest_step(str(ckpt))
+    state = load_checkpoint(str(ckpt), step, DEVICE)["encoder"]
+    cfg = load_config(["mode=test", "dataset.name=synthetic", f"dataset.image_shape=[{h},{w}]",
+                       "dataset.synthetic_cache_batches=1"])
+    batch = next(synthetic_batches(SyntheticCfg(
+        image_shape=(h, w), num_context=cfg.dataset.num_context_views,
+        num_target=cfg.dataset.synthetic_num_targets, seed=cfg.data_loader.seed,
+        cache_batches=1, renderer=cfg.dataset.synthetic_renderer), device=DEVICE))
+    ctx = {k: batch["context"][k] for k in VIEW_KEYS}
+    depth = {}
+    for dtype in ("float32", "bfloat16"):
+        enc_cfg = dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats,
+                                      compute_dtype=dtype)
+        encoder = make_encoder(enc_cfg, device=DEVICE, seed=cfg.seed)
+        encoder.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            depth[dtype] = encoder(ctx)["depth_s-1"].float()
+        del encoder
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    a, b = depth["bfloat16"][0], depth["float32"][0]
+    return {"step": step, "rel_l2": rel(a, b), "worst_view": max(rel(x, y) for x, y in zip(a, b)),
+            "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all())}
+
+
+def proof_overfit(steps: int, keep: Path | None) -> None:
+    """``scripts/overfit_proof.py`` at 384x512 for ``steps`` steps (its
+    default validation and checkpoint interval, 1,000): the train curve
+    beside the JAX package's at the same steps
+    (``docs/evidence/overfit/metrics_384x512_r3.jsonl``), the test summary,
+    then the checkpoint served again under ``encoder.compute_dtype=
+    bfloat16`` (its summary, and ``depth_s-1`` against float32).  The
+    gates of ``check_overfit``; from 1,000 steps on, the script's bar:
+    test PSNR >= 35 dB, gs_ratio < 1."""
+    from freesplat_tpu_torch import main as M
+    from freesplat_tpu_torch.scripts import overfit_proof
+
+    jax_curve = jax_overfit_curve()
+    with proof_dir() as tmp:
+        out = tmp / "proof"
+        t0 = time.perf_counter()
+        overfit_proof.main(["--steps", str(steps), "--out", str(out), "--image-shape",
+                            f"{H},{W}"], device=DEVICE)
+        wall = time.perf_counter() - t0
+        curve = logged_curve(tmp)
+        stats = json.loads((out / "test" / "stats.json").read_text())
+        t1 = time.perf_counter()
+        M.main(["mode=test", "dataset.name=synthetic", f"dataset.image_shape=[{H},{W}]",
+                "dataset.synthetic_cache_batches=1", "test.max_scenes=1",
+                f"checkpointing.load={out / 'ckpt'}", f"test.output_path={out}/test_bf16",
+                "encoder.compute_dtype=bfloat16"], device=DEVICE)
+        bf16 = json.loads((out / "test_bf16" / "stats.json").read_text())["summary"]
+        bf16_wall = time.perf_counter() - t1
+        depth = overfit_bf16_depth(out / "ckpt", H, W)
+        _keep(keep, {"metrics.jsonl": tmp / "outputs" / "local" / "metrics.jsonl",
+                     "stats.json": out / "test" / "stats.json",
+                     "stats_bf16.json": out / "test_bf16" / "stats.json"})
+    for r in curve:
+        j = jax_curve.get(r["step"])
+        log(f"[overfit] step {r['step']}: train psnr {r['psnr']:.4f} (JAX {j['psnr']:.4f})"
+            if j else f"[overfit] step {r['step']}: train psnr {r['psnr']:.4f}",
+            f"gs_ratio {r['gs_ratio']:.4f} loss {r['loss']:.6g} steps/s {r['steps_per_s']:.3f}")
+    log(f"[overfit] {steps} steps at {H}x{W} in {wall:.1f} s (train and test); test summary "
+        f"{json.dumps(stats['summary'])}")
+    log(f"[overfit] bfloat16 serve of the checkpoint ({bf16_wall:.1f} s): {json.dumps(bf16)}; "
+        f"depth_s-1 bfloat16 vs float32 relative L2 {depth['rel_l2']:.4g} (worst view "
+        f"{depth['worst_view']:.4g}) at step {depth['step']}")
+    summary = check_overfit(curve, stats)
+    if not all(math.isfinite(v) for v in bf16.values()) or not depth["finite"] \
+            or bf16["dropped_instances"]:
+        raise AssertionError(f"[overfit] bfloat16 serve {bf16}, depth {depth}")
+    if steps >= 1000 and not (summary["psnr"] >= OVERFIT_BAR_DB and summary["gs_ratio"] < 1):
+        raise AssertionError(f"[overfit] test psnr {summary['psnr']} / gs_ratio "
+                             f"{summary['gs_ratio']} misses the bar (>= {OVERFIT_BAR_DB}, < 1)")
+
+
+def proof_generalization(steps: int, scenes: int, keep: Path | None) -> None:
+    """``scripts/generalization_proof.py``: ``train --steps steps`` at
+    192x256 (3 contexts, 2 targets, a fresh scene each step), then ``eval
+    --scenes scenes`` on the held-out stream (seed 99990); the three legs
+    beside the JAX package's (``docs/evidence/generalization/stats.json``).
+    The gates of ``check_generalization``; the trained leg must beat
+    ``nearest_context``, and at JAX's 20 scenes ``nearest_context`` must be
+    within NEAREST_TOL_DB of JAX's."""
+    from freesplat_tpu_torch.scripts import generalization_proof as G
+
+    jax_report = json.loads(JAX_GENERALIZATION.read_text())
+    with proof_dir() as tmp:
+        ckpt = tmp / "ckpt"
+        t0 = time.perf_counter()
+        G.main(["train", "--steps", str(steps), "--ckpt", str(ckpt), "--save-every",
+                str(steps)], device=DEVICE)
+        t1 = time.perf_counter()
+        report = G.main(["eval", "--scenes", str(scenes), "--ckpt", str(ckpt), "--out",
+                         str(tmp / "eval")], device=DEVICE)
+        t2 = time.perf_counter()
+        curve = logged_curve(tmp)
+        _keep(keep, {"metrics.jsonl": tmp / "outputs" / "local" / "metrics.jsonl",
+                     "stats.json": tmp / "eval" / "stats.json"})
+    for r in curve:
+        log(f"[generalization] step {r['step']}: train psnr {r['psnr']:.4f} gs_ratio "
+            f"{r['gs_ratio']:.4f} loss {r['loss']:.6g} steps/s {r['steps_per_s']:.3f}")
+    legs = check_generalization(report)
+    log(f"[generalization] train {steps} steps {t1 - t0:.1f} s, eval {scenes} scenes "
+        f"{t2 - t1:.1f} s; " + "; ".join(
+            f"{k} psnr {v['psnr']:.4f} ssim {v['ssim']:.4f} (JAX {jax_report[k]['psnr']:.4f} / "
+            f"{jax_report[k]['ssim']:.4f})" for k, v in legs.items()))
+    if not legs["trained"]["psnr"] > legs["nearest_context"]["psnr"]:
+        raise AssertionError("[generalization] the trained leg does not beat nearest_context")
+    if scenes == jax_report["protocol"]["held_out_scenes"] and abs(
+            legs["nearest_context"]["psnr"] - jax_report["nearest_context"]["psnr"]) \
+            > NEAREST_TOL_DB:
+        raise AssertionError("[generalization] nearest_context differs from JAX's")
+
+
+OVERFIT_STEPS, OVERFIT_VAL = 200, 100  # [overfit]: overfit_proof --steps --val-every
+# The overfit proof's gate on the train PSNR at step 200; the JAX
+# package's run logged 39.30 dB there and 35.72 at step 100
+# (docs/evidence/overfit/metrics_384x512_r3.jsonl).
+OVERFIT_MIN_PSNR = 30.0
+OVERFIT_GATE_STEP = 200
+GEN_STEPS, GEN_SCENES = 100, 3  # [generalization]: train --steps, eval --scenes
+GEN_SHAPE = (192, 256)  # [generalization]: the proof's default --image-shape
+SERVE_DUMPS: Path | None = None  # the serving phase's output tree, kept for [offline]
+
+
+def overfit_run():
+    """``scripts/overfit_proof.py --steps 200 --val-every 100`` at 384x512
+    in a temporary directory: the gates of ``check_overfit`` (the train
+    PSNR at step 200 at least OVERFIT_MIN_PSNR); launches by path
+    (``overfit_data``, ``overfit_train``, ``overfit_val``,
+    ``overfit_test``); the kernels held against their plain versions at a
+    target view of the step-200 Gaussians."""
+    from freesplat_tpu_torch.config.config import load_config
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+    from freesplat_tpu_torch.models.encoder import make_encoder
+    from freesplat_tpu_torch.scripts import overfit_proof
+    from freesplat_tpu_torch.training.checkpoint import load_checkpoint
+
+    jax_curve = {k: r["psnr"] for k, r in jax_overfit_curve().items()}
+    with proof_dir() as tmp:
+        out = tmp / "proof"
+        with counted_main("overfit", test_path=True) as run:
+            draws, vals, paths, _, wall = run(
+                ["--steps", str(OVERFIT_STEPS), "--val-every", str(OVERFIT_VAL), "--out",
+                 str(out), "--image-shape", f"{H},{W}"], entry=overfit_proof.main)
+        curve = logged_curve(tmp)
+        stats = json.loads((out / "test" / "stats.json").read_text())
+        state = load_checkpoint(str(out / "ckpt"), OVERFIT_STEPS, DEVICE)["encoder"]
+    steps = [r["step"] for r in curve]
+    if steps != list(range(0, OVERFIT_STEPS + 1, 100)):
+        raise AssertionError(f"[overfit] logged steps {steps}")
+    log(f"[overfit] overfit_proof --steps {OVERFIT_STEPS} --val-every {OVERFIT_VAL} at {H}x{W}: "
+        f"wall {wall:.1f} s, {draws} batches drawn, {vals} validations; dropped by step "
+        + ", ".join(f"{r['step']}: {r['dropped_instances']:.0f}" for r in curve)
+        + "; train psnr by step "
+        + ", ".join(f"{r['step']}: {r['psnr']:.3f} (JAX {jax_curve.get(r['step'], math.nan):.3f})"
+                    for r in curve)
+        + f"; steps/s at the last log {curve[-1]['steps_per_s']:.3f}; test summary "
+        f"{json.dumps(stats['summary'])}; launches {paths}")
+    cfg = load_config(["dataset.name=synthetic", f"dataset.image_shape=[{H},{W}]",
+                       "dataset.synthetic_cache_batches=1"])
+    targets = cfg.dataset.synthetic_num_targets
+    sums = (OVERFIT_STEPS + 1) * segment_sums_per_step(cfg, 2, targets)
+    want = {"overfit_train": {"rasterize_fwd": targets * (OVERFIT_STEPS + 1),
+                              "rasterize_bwd": targets * (OVERFIT_STEPS + 1),
+                              "segment_sum": sums},
+            "overfit_val": {"rasterize_fwd": targets * vals, "rasterize_bwd": 0,
+                            "segment_sum": 0},
+            "overfit_test": {"rasterize_fwd": targets, "rasterize_bwd": 0, "segment_sum": 0}}
+    got = {p: {k: paths[p].get(k, 0) for k in want[p]} for p in want}
+    if DEVICE == "cuda" and (got != want or vals != OVERFIT_STEPS // OVERFIT_VAL):
+        raise AssertionError(f"[overfit] launches {got}, want {want} ({vals} validations)")
+    encoder = make_encoder(dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
+                           device=DEVICE, seed=cfg.seed)
+    encoder.load_state_dict(state, strict=True)
+    scene = next(synthetic_batches(SyntheticCfg(
+        image_shape=(H, W), num_context=2, num_target=targets, seed=cfg.data_loader.seed,
+        cache_batches=1), device=DEVICE))
+    saved = launch_counts()
+    inst, binning, _, _ = view_inputs(encoder, cfg.decoder.capacity_factor, scene)
+    cmp = compare_tiles(inst, binning, W // 16, seed=5)
+    for d in _count_dicts():  # comparison launches, not the path's
+        d.update({k: v for k, v in saved.items() if k in d})
+    log(f"[overfit] target view 0 of the step-{OVERFIT_STEPS} Gaussians: forward max_err "
+        f"{cmp[0]:.3g} (bit-equal), backward max_err {cmp[1]:.3g} (scaled {cmp[-1]:.3g}); "
+        f"{inst.shape[0]} instances, dropped {int(binning.dropped)}")
+    check_overfit(curve, stats)
+    return paths, cmp[:2]
+
+
+def ssim_plain(gt: np.ndarray, pred: np.ndarray) -> np.ndarray:
+    """(b, h, w, c) -> (b,) SSIM in float64 numpy: an 11x11 Gaussian
+    window (sigma 1.5) over the valid region, skimage's unbiased
+    covariances, C1 = 0.01**2 and C2 = 0.03**2 on [0, 1] images."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    k = np.exp(-0.5 * ((np.arange(11) - 5.0) / 1.5) ** 2)
+    k = np.outer(k, k) / k.sum() ** 2
+    x, y = np.clip(gt, 0, 1), np.clip(pred, 0, 1)
+
+    def filt(a):  # (b, h, w, c) -> (b, h - 10, w - 10, c)
+        return np.einsum("bhwcij,ij->bhwc", sliding_window_view(a, (11, 11), axis=(1, 2)), k)
+
+    n = 121 / 120.0
+    mx, my = filt(x), filt(y)
+    vx, vy = n * (filt(x * x) - mx * mx), n * (filt(y * y) - my * my)
+    vxy = n * (filt(x * y) - mx * my)
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim = (2 * mx * my + c1) * (2 * vxy + c2) / ((mx * mx + my * my + c1) * (vx + vy + c2))
+    return ssim.reshape(len(ssim), -1).mean(axis=1)
+
+
+def nearest_context_plain(batch) -> tuple[float, float]:
+    """``_nearest_context_baseline`` recomputed on the host in float64
+    numpy: pose distances, the nearest context view, PSNR and
+    ``ssim_plain``."""
+    ctx = {k: np.asarray(batch["context"][k][0].cpu(), np.float64) for k in ("extrinsics", "image")}
+    tgt = {k: np.asarray(batch["target"][k][0].cpu(), np.float64) for k in ("extrinsics", "image")}
+    e = np.concatenate([ctx["extrinsics"], tgt["extrinsics"]])
+    t, r = e[:, :3, 3], e[:, :3, :3]
+    trace = np.einsum("aji,bji->ab", r, r)  # trace(R_a^T R_b)
+    dist = np.linalg.norm(t[:, None] - t[None], axis=-1) + np.arccos(
+        np.clip((trace - 1) / 2, -1, 1))
+    nc = len(ctx["image"])
+    pred = ctx["image"][np.argmin(dist[nc:, :nc], axis=1)]
+    gt = tgt["image"]
+    mse = ((np.clip(gt, 0, 1) - np.clip(pred, 0, 1)) ** 2).mean(axis=(1, 2, 3))
+    psnr = -10 * np.log10(np.maximum(mse, 1e-10))
+    return float(psnr.mean()), float(ssim_plain(gt, pred).mean())
+
+
+def generalization_run():
+    """``scripts/generalization_proof.py train --steps 100`` at 192x256 (3
+    contexts, 2 targets, a fresh tile-rendered scene each step), then
+    ``eval --scenes 3``: every leg finite, the report in the JAX
+    evidence's structure, ``nearest_context`` equal to
+    ``nearest_context_plain`` on the same scenes (1e-4 in dB and SSIM);
+    launches by path (``gen_data``, ``gen_train``, ``gen_eval``)."""
+    from freesplat_tpu_torch.data.synthetic import SyntheticCfg, synthetic_batches
+    from freesplat_tpu_torch.scripts import generalization_proof as G
+
+    with proof_dir() as tmp:
+        ckpt = tmp / "ckpt"
+        with counted_main("gen") as run:
+            draws, vals, paths, _, train_wall = run(
+                ["train", "--steps", str(GEN_STEPS), "--ckpt", str(ckpt), "--save-every",
+                 str(GEN_STEPS), "--image-shape", "{},{}".format(*GEN_SHAPE)],
+                entry=G.main)
+        curve = logged_curve(tmp)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        G.main(["eval", "--scenes", str(GEN_SCENES), "--ckpt", str(ckpt), "--out",
+                str(tmp / "eval"), "--image-shape", "{},{}".format(*GEN_SHAPE)], device=DEVICE)
+        sync()
+        eval_wall = time.perf_counter() - t0
+        paths["gen_eval"] = launch_counts()
+        saved = json.loads((tmp / "eval" / "stats.json").read_text())
+    paths.pop("gen_val")
+    views = 3 + 2
+    it = synthetic_batches(SyntheticCfg(image_shape=GEN_SHAPE, num_context=3, num_target=2,
+                                        seed=G.EVAL_SEED, vary_scene=True, renderer="tile"),
+                           device=DEVICE)
+    plain = [nearest_context_plain(next(it)) for _ in range(GEN_SCENES)]
+    plain = (float(np.mean([p for p, _ in plain])), float(np.mean([s for _, s in plain])))
+    legs = check_generalization(saved)
+    near = legs["nearest_context"]
+    if abs(near["psnr"] - plain[0]) > 1e-4 or abs(near["ssim"] - plain[1]) > 1e-4:
+        raise AssertionError(f"[generalization] nearest_context {near} against the plain "
+                             f"recomputation {plain}")
+    if not all(math.isfinite(v) for r in curve for v in r.values()):
+        raise AssertionError("[generalization] non-finite train metrics")
+    want = {"gen_data": {"rasterize_fwd": views * draws, "rasterize_bwd": 0},
+            "gen_train": {"rasterize_fwd": 2 * (GEN_STEPS + 1),
+                          "rasterize_bwd": 2 * (GEN_STEPS + 1)},
+            # The baseline's scenes, then each leg's: run_test draws one
+            # scene past max_scenes before it stops, as JAX's does.
+            "gen_eval": {"rasterize_fwd": GEN_SCENES * views
+                         + 2 * ((GEN_SCENES + 1) * views + 2 * GEN_SCENES),
+                         "rasterize_bwd": 0}}
+    got = {p: {k: paths[p].get(k, 0) for k in want[p]} for p in want}
+    if DEVICE == "cuda" and got != want:
+        raise AssertionError(f"[generalization] launches {got}, want {want}")
+    log(f"[generalization] train --steps {GEN_STEPS} at {GEN_SHAPE[0]}x{GEN_SHAPE[1]}: wall {train_wall:.1f} s, "
+        f"train psnr by step " + ", ".join(f"{r['step']}: {r['psnr']:.3f}" for r in curve)
+        + f"; eval --scenes {GEN_SCENES}: wall {eval_wall:.1f} s; " + "; ".join(
+            f"{k} psnr {v['psnr']:.4f} ssim {v['ssim']:.4f}" for k, v in legs.items())
+        + f"; nearest_context recomputed on the host {plain[0]:.4f} / {plain[1]:.4f}; "
+        f"launches {paths}")
+    return paths
+
+
+def top_device_ops(prof, n: int = 10) -> tuple[float, float, list]:
+    """(device busy ms, the device operations' summed ms, the ``n`` device
+    operations with the most device time: (ms, calls, name)) from a
+    ``torch.profiler`` session.  Busy is the union of the operations'
+    intervals: cuDNN runs some on a stream of its own, so they overlap and
+    their sum can exceed the wall time."""
+    from torch.autograd import DeviceType
+
+    ops: dict[str, list[float]] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(((sum(v), len(v), k) for k, v in ops.items()), reverse=True)[:n]
+    return busy / 1e3, sum(sum(v) for v in ops.values()), top
+
+
+def profile_run():
+    """``whole_scene_profile`` at 30 views x 384x512, chunks of 15: a cold
+    rep, then a warm one inside ``utils/profiling.trace`` (its phases,
+    the device's busy share and the ten device operations with the most
+    time; the trace file written); ``profile_stages raster raster_sub
+    train`` and ``bench_suite raster encoder train2`` (their lines
+    relayed).  Launches by path: ``profile_ws`` (the scene's renders),
+    ``profile_stages``, ``bench_suite``."""
+    from freesplat_tpu_torch.scripts import bench_suite, profile_stages, whole_scene_profile
+    from freesplat_tpu_torch.utils.profiling import trace
+
+    paths = {}
+    reset_launch_counts()
+    args = whole_scene_profile.parse_args(["--views", str(WS_VIEWS), "--image-shape", f"{H},{W}",
+                                           "--chunk", "15", "--device", DEVICE])
+    encode, context, timings = whole_scene_profile.setup(args)
+    paths["profile_ws"] = launch_counts()
+    cold, cold_phases = whole_scene_profile.run_rep(encode, context, timings, args.chunk)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp, enabled=True) as prof:
+            warm, warm_phases = whole_scene_profile.run_rep(encode, context, timings, args.chunk)
+        trace_s = time.perf_counter() - t0
+        files = [(p.name, p.stat().st_size) for p in Path(tmp).iterdir()]
+    if not files or not all(size > 0 for _, size in files):
+        raise AssertionError(f"[profile] trace directory {files}")
+    del encode, context
+    busy, summed, top = top_device_ops(prof)
+    if DEVICE == "cuda" and not top:
+        raise AssertionError("[profile] the trace holds no device operation")
+    for label, total, phases in (("cold", cold, cold_phases), ("warm (traced)", warm, warm_phases)):
+        if not all(v >= 0 for v in phases.values()):
+            raise AssertionError(f"[profile] negative phase in {phases}")
+        log(f"[profile] whole_scene_profile {WS_VIEWS} views {H}x{W} chunks of 15, {label}: "
+            f"total {total:.3f} s {json.dumps(phases)}")
+    log(f"[profile] the traced warm encode: host wall {1e3 * warm:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle share {1 - busy / (1e3 * warm):.3f}; the operations' times sum "
+        f"to {summed:.2f} ms); trace {files} in {trace_s:.1f} s; the ten device operations "
+        f"with the most time:")
+    for ms, calls, name in top:
+        log(f"[profile]   {ms:9.3f} ms  x{calls:<5d} {name[:100]}")
+    reset_launch_counts()
+    profile_stages.main(["raster", "raster_sub", "train"], device=DEVICE)
+    paths["profile_stages"] = launch_counts()
+    reset_launch_counts()
+    bench_suite.main(["raster", "encoder", "train2"], device=DEVICE)
+    paths["bench_suite"] = launch_counts()
+    log(f"[profile] launches {paths}")
+    return paths
+
+
+def offline_run():
+    """Offline evaluation: ``compute_metrics`` over the serving phase's
+    PNG dumps (each scene's PSNR and SSIM within 1e-4 of
+    ``compute_psnr``/``compute_ssim`` on the host over the same PNGs read
+    back; ``run_test``'s unquantized numbers printed beside);
+    ``generate_evaluation_index`` on a ScanNet-layout scene (the same
+    JSON as the generator on the host CPU); ``videoize_index``;
+    ``test_splatter`` (24 PNGs and a GIF)."""
+    import torch
+    from PIL import Image
+    from freesplat_tpu_torch.evaluation.metric_computer import _load_frames, compute_scene_metrics
+    from freesplat_tpu_torch.scripts import compute_metrics, generate_evaluation_index
+    from freesplat_tpu_torch.scripts import test_splatter
+    from freesplat_tpu_torch.scripts.generate_video_evaluation_index import videoize_index
+    from freesplat_tpu_torch.training.metrics import compute_psnr, compute_ssim
+
+    if SERVE_DUMPS is None:
+        raise AssertionError("[offline] the serving phase kept no dumps")
+    served = {e["scene"]: e for e in json.loads((SERVE_DUMPS / "stats.json").read_text())[
+        "per_scene"]}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            table = compute_metrics.main([f"served={SERVE_DUMPS}"], device=DEVICE)
+            metrics_s = time.perf_counter() - t0
+            if json.loads((tmp / "outputs" / "metrics" / "metrics.json").read_text()) != table:
+                raise AssertionError("[offline] metrics.json differs from the returned table")
+        finally:
+            os.chdir(cwd)
+        rows = []
+        for scene_dir in sorted(p for p in SERVE_DUMPS.iterdir() if p.is_dir()):
+            card = compute_scene_metrics(scene_dir, device=DEVICE)
+            if card is None:  # an FVS scene: no color/ folder, as in JAX
+                continue
+            preds, gts = (_load_frames(scene_dir / "color", gt=g) for g in (False, True))
+            pred = torch.from_numpy(np.stack([preds[k] for k in sorted(preds)]))
+            gt = torch.from_numpy(np.stack([gts[k] for k in sorted(preds)]))
+            host = (float(compute_psnr(gt, pred).mean()), float(compute_ssim(gt, pred).mean()))
+            if abs(card["psnr"] - host[0]) > 1e-4 or abs(card["ssim"] - host[1]) > 1e-4:
+                raise AssertionError(f"[offline] {scene_dir.name}: {card} against {host}")
+            rows.append((scene_dir.name, card, host, served[scene_dir.name]))
+        if not rows or table["served"]["num_frames"] != sum(r[1]["num_frames"] for r in rows):
+            raise AssertionError(f"[offline] compute_metrics table {table}")
+
+        index = ROOT / "assets" / "evaluation_index_scannet_10views.json"
+        key = write_scannet_scene(tmp / "scannet", index)
+        # The index key names the scene with the evaluation split's "_0"
+        # suffix; without the list the loader takes the scene's folder.
+        (tmp / "scannet" / "test_idx.txt").unlink()
+        # A track that turns 0.01 rad and moves 1 cm a frame: the pair
+        # overlap crosses the generator's [0.4, 0.8] within 60 frames, so
+        # the first context it draws finds a partner.  (On the scene's slow
+        # arc no pair qualifies, and the generator walks every frame.)
+        poses = tmp / "scannet" / "test" / key[:-2] / "extrinsics.npy"
+        extr = np.load(poses)
+        for i in range(len(extr)):
+            a = 0.01 * i
+            extr[i, :3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                               [-math.sin(a), 0, math.cos(a)]]
+            extr[i, :3, 3] = [0.01 * i, 0.0, 0.0]
+        np.save(poses, extr)
+        t0 = time.perf_counter()
+        files = [generate_evaluation_index.main(
+            [f"dataset.roots=[{tmp / 'scannet'}]", f"test.output_path={tmp / where}"],
+            device=device) for where, device in (("card", DEVICE), ("host", "cpu"))]
+        index_s = time.perf_counter() - t0
+        card_index, host_index = (json.loads(f.read_text()) for f in files)
+        if card_index != host_index or len(card_index) != 1 or None in card_index.values():
+            raise AssertionError(f"[offline] index {card_index} against the host's {host_index}")
+        video = videoize_index({**card_index, **json.loads(
+            (ROOT / "assets" / "evaluation_index_scannet_2views.json").read_text())})
+        for key, entry in video.items():
+            if entry is not None and entry["target"] != list(
+                    range(min(entry["context"]), max(entry["context"]) + 1)):
+                raise AssertionError(f"[offline] videoized {key}: {entry}")
+
+        t0 = time.perf_counter()
+        frames = test_splatter.main(str(tmp / "splatter"), device=DEVICE)
+        splatter_s = time.perf_counter() - t0
+        pngs = sorted((tmp / "splatter").glob("*.png"))
+        gif = Image.open(tmp / "splatter" / "spin.gif")
+        if len(pngs) != 24 or getattr(gif, "n_frames", 1) != 24 or not all(
+                np.isfinite(f).all() and f.max() > 0.1 for f in frames):
+            raise AssertionError(f"[offline] test_splatter wrote {len(pngs)} PNGs, GIF of "
+                                 f"{getattr(gif, 'n_frames', 1)} frames")
+    for name, card, host, run in rows:
+        log(f"[offline] compute_metrics {name}: {card['num_frames']} frames, psnr "
+            f"{card['psnr']:.5f} ssim {card['ssim']:.5f} (host over the PNGs {host[0]:.5f} / "
+            f"{host[1]:.5f}; run_test's unquantized {run['psnr']:.5f} / {run['ssim']:.5f})")
+    log(f"[offline] compute_metrics {metrics_s:.2f} s, table {table}; generate_evaluation_index "
+        f"on the card and the host {index_s:.2f} s: {card_index}; videoized "
+        f"{sum(e is not None for e in video.values())} entries; test_splatter 24 frames at "
+        f"128x128 and spin.gif in {splatter_s:.2f} s")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """``[phase] <name> start`` / ``ok <seconds>`` around a phase; on an
+    exception ``[fail] <name>: <type>: <message>`` and the traceback's
+    last frame on standard output, and the exception goes on (the run
+    fails)."""
+    import traceback
+
+    log(f"[phase] {name} start")
+    t0 = time.perf_counter()
+    try:
+        yield
+    except BaseException as e:
+        log(f"[fail] {name}: {type(e).__name__}: {e}")
+        frames = traceback.extract_tb(e.__traceback__)
+        if frames:
+            f = frames[-1]
+            log(f"[fail]   at {f.filename}:{f.lineno} in {f.name}: {f.line}")
+        raise
+    log(f"[phase] {name} ok {time.perf_counter() - t0:.2f}")
+
+
+def run_phase(name: str, fn, *args):
+    with phase(name):
+        return fn(*args)
+
+
 def main(argv=None) -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on an NVIDIA GPU.")
@@ -2902,6 +3560,13 @@ def main(argv=None) -> int:
                     help="a directory holding another tree's rasterize_{fwd,bwd}.cu and "
                          "gather_rows.cu, held against this tree's kernels and timed "
                          "beside them")
+    ap.add_argument("--proof", choices=["overfit", "generalization"], default=None,
+                    help="run one quality proof at its published size instead of the checks")
+    ap.add_argument("--steps", type=int, default=1000, help="--proof: training steps")
+    ap.add_argument("--scenes", type=int, default=20,
+                    help="--proof generalization: held-out scenes")
+    ap.add_argument("--keep", type=Path, default=None,
+                    help="--proof: copy the curve and stats files into this directory")
     ap.add_argument("--multi-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--settings", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -2916,49 +3581,78 @@ def main(argv=None) -> int:
     if args.multi_worker:  # the [multi] phase's torchrun child
         return multi_worker(args.multi_worker, settings)
     card = card_line()
-    import freesplat_tpu_torch  # noqa: F401  (sets the precision flags)
-    from freesplat_tpu_torch.utils import cuda_build
+    with phase("build"):
+        import freesplat_tpu_torch  # noqa: F401  (sets the precision flags)
+        from freesplat_tpu_torch.utils import cuda_build
 
-    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"tf32 cudnn {torch.backends.cudnn.allow_tf32}")
-    t0 = time.perf_counter()
-    names = ["rasterize_fwd", "rasterize_bwd", "gather_rows", "segment_sum"]
-    cuda_build.build_all(names)
-    log(f"[build] {names} in {time.perf_counter() - t0:.2f} s")
-    for k in names:
-        log(f"[build] {k}: {cuda_build.BUILD_INFO[k]['log']}")
+        log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+            f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+            f"tf32 cudnn {torch.backends.cudnn.allow_tf32}")
+        t0 = time.perf_counter()
+        names = ["rasterize_fwd", "rasterize_bwd", "gather_rows", "segment_sum"]
+        cuda_build.build_all(names)
+        log(f"[build] {names} in {time.perf_counter() - t0:.2f} s")
+        for k in names:
+            log(f"[build] {k}: {cuda_build.BUILD_INFO[k]['log']}")
+    keep = args.keep.resolve() if args.keep else None  # the proofs change directory
+    if args.proof == "overfit":
+        run_phase("proof_overfit", proof_overfit, args.steps, keep)
+    elif args.proof == "generalization":
+        run_phase("proof_generalization", proof_generalization, args.steps, args.scenes, keep)
+    else:
+        return checks(torch, card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
 
-    errs = [kernel_cases()]
-    native_phase()
-    bench_err, bench_t = bench_scene()
+
+def checks(torch, card) -> int:
+    """Every phase of the checks, in order; the kernels line, the card line
+    and the result line."""
+    global SERVE_DUMPS
+    dumps = tempfile.TemporaryDirectory()
+    SERVE_DUMPS = Path(dumps.name)
+    errs = [run_phase("kernel_cases", kernel_cases)]
+    run_phase("native", native_phase)
+    bench_err, bench_t = run_phase("bench_scene", bench_scene)
     errs.append(bench_err)
-    serve_launches, serve_err = slice_run()
+    serve_launches, serve_err = run_phase("slice", slice_run)
     errs.append(serve_err)
-    weights_launches = weights_phase()
-    ws_launches, ws_err, ws_t = whole_scene_run()
+    weights_launches = run_phase("weights", weights_phase)
+    ws_launches, ws_err, ws_t = run_phase("whole_scene", whole_scene_run)
     errs.append((ws_err, 0.0))
-    fvt_cli_launches = fvt_cli_run()
-    train_launches, train_err, timing = train_run()
+    fvt_cli_launches = run_phase("fvt_cli", fvt_cli_run)
+    train_launches, train_err, timing = run_phase("train", train_run)
     errs.append(train_err)
-    depth_launches, depth_bwd_err, _ = train_depth_run()
+    depth_launches, depth_bwd_err, _ = run_phase("depth", train_depth_run)
     errs.append((0.0, depth_bwd_err))
-    leg_launches, leg_err = lpips_leg_run()
+    leg_launches, leg_err = run_phase("lpips_leg", lpips_leg_run)
     errs.append(leg_err)
-    replica_launches = replica_run()
+    replica_launches = run_phase("replica", replica_run)
     with tempfile.TemporaryDirectory() as tmp:
-        key = re10k_chunks(Path(tmp))
-        re10k_launches, re10k_err, re10k_seg_err, _ = re10k_train_run(Path(tmp))
-        re10k_test_launches, re10k_test_err = re10k_test_run(Path(tmp), key)
+        key = run_phase("re10k", re10k_chunks, Path(tmp))
+        re10k_launches, re10k_err, re10k_seg_err, _ = run_phase(
+            "re10k_train", re10k_train_run, Path(tmp))
+        re10k_test_launches, re10k_test_err = run_phase(
+            "re10k_test", re10k_test_run, Path(tmp), key)
     errs += [re10k_err, (re10k_test_err, 0.0)]
-    gather_err, gather_t = gather_phase()
-    probe_launches, probe = probe_run()
-    cli_launches, _ = cli_run()
-    multi = multi_run()
-    proj_launches, proj_err, proj_t = projections_run()
+    gather_err, gather_t = run_phase("gather", gather_phase)
+    probe_launches, probe = run_phase("probe", probe_run)
+    cli_launches, _ = run_phase("cli", cli_run)
+    multi = run_phase("multi", multi_run)
+    proj_launches, proj_err, proj_t = run_phase("projections", projections_run)
     errs.append((proj_err, 0.0))
-    fvt_train_launches = fvt_train_run()
-    seg_err, seg_t = determinism_run()
+    fvt_train_launches = run_phase("fvt_train", fvt_train_run)
+    seg_err, seg_t = run_phase("determinism", determinism_run)
+    gen_launches = run_phase("generalization", generalization_run)
+    profile_launches = run_phase("profile", profile_run)
+    run_phase("offline", offline_run)
+    dumps.cleanup()
+    overfit_launches, overfit_err = run_phase("overfit", overfit_run)
+    errs.append(overfit_err)
     for k, (ms, plain_ms, bound_ms, bound_by) in bench_t.items():
         log(f"[bench] {k} at the bench scene: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -2973,7 +3667,8 @@ def main(argv=None) -> int:
              "replica": replica_launches, "probe": probe_launches, **cli_launches,
              **ws_launches, "fvt_cli": fvt_cli_launches, "fvt_train": fvt_train_launches,
              **re10k_launches, "re10k_test": re10k_test_launches, **weights_launches,
-             **leg_launches, **proj_launches, **multi["paths"]}
+             **leg_launches, **proj_launches, **multi["paths"], **overfit_launches,
+             **gen_launches, **profile_launches}
     rows = []
     for i, (name, line) in enumerate((("rasterize_fwd", 378), ("rasterize_bwd", 457))):
         ms, plain_ms, bound_ms, bound_by = timing[name]

@@ -14,7 +14,6 @@ and the rasterizer stay float32.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -23,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.jax_random import lecun_normal, param_key, prng_key
 from .adapter import GaussianAdapterCfg, build_gaussians, unproject_depth
 from .backbone import FEATURE_CHANNELS, EfficientNetV2S
 from .cost_volume import CostVolume
@@ -277,19 +277,20 @@ class EncoderFreeSplat(nn.Module):
 
 @torch.no_grad()
 def init_like_flax(module: nn.Module, seed: int) -> nn.Module:
-    """Initialize as flax's defaults do, from ``seed``: conv and dense
-    kernels lecun-normal (truncated normal, variance 1/fan_in), biases 0,
-    BN scale 1 / bias 0 / mean 0 / var 1."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    # std of a unit normal truncated to [-2, 2]
-    trunc_std = 0.87962566103423978
-    for m in module.modules():
+    """Initialize as flax's defaults do at ``jax.random.PRNGKey(seed)``,
+    with ``module`` as the root: conv and dense kernels lecun-normal from
+    the key flax hands each (``utils/jax_random.py``), biases 0, BN scale
+    1 / bias 0 / mean 0 / var 1.  The JAX package's weights for the same
+    module and seed, but for the last bits of ~1 % of them."""
+    root = prng_key(seed)
+    for path, m in module.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / trunc_std
-            wt = torch.empty(m.weight.shape)
-            nn.init.trunc_normal_(wt, 0.0, std, -2 * std, 2 * std, generator=gen)
-            m.weight.copy_(wt)
+            wt = m.weight
+            conv = wt.ndim == 4
+            shape = (wt.shape[2], wt.shape[3], wt.shape[1], wt.shape[0]) if conv else wt.shape[::-1]
+            kernel = lecun_normal(param_key(root, tuple(path.split("."))), tuple(shape),
+                                  fan_in=wt[0].numel())
+            wt.copy_(kernel.permute(3, 2, 0, 1) if conv else kernel.T)
             if m.bias is not None:
                 m.bias.zero_()
     return module

@@ -16,7 +16,11 @@ from typing import Any, Callable, Sequence
 import torch
 
 
-def _on_cuda(args: tuple) -> bool:
+def _on_cuda(args: tuple, device: str | torch.device | None = None) -> bool:
+    """Whether to read the GPU's clock: ``device`` if given, else whether
+    a tensor argument lies on the GPU."""
+    if device is not None:
+        return torch.device(device).type == "cuda"
     return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
 
@@ -25,11 +29,14 @@ def bench(
     args_list: Sequence[tuple],
     n: int = 8,
     warmup: int = 2,
+    device: str | torch.device | None = None,
 ) -> float:
     """Seconds per call of ``fn``, cycling through the argument tuples
     ``args_list`` (distinct inputs, as the JAX version takes them), after
-    ``warmup`` untimed calls."""
-    cuda = _on_cuda(tuple(args_list[0]))
+    ``warmup`` untimed calls.  ``device``: the device whose clock to read
+    (default: the GPU's when a tensor argument lies there, for calls whose
+    arguments hold no tensor, such as a train state)."""
+    cuda = _on_cuda(tuple(args_list[0]), device)
     for i in range(warmup):
         fn(*args_list[i % len(args_list)])
     if not cuda:
