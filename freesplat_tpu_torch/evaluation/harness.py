@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from pathlib import Path
 from typing import Any, Iterable
 
@@ -45,20 +44,41 @@ from ..utils.benchmarker import Benchmarker
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import load_flax_variables
 from ..utils.ply_export import export_ply
+from ..utils.profiling import active, count, host_array, host_value, span, timed, upload
 from ..utils.visualization import depth_to_color
 from .video import render_video_interpolation, render_video_wobble
 
 _VIEW_KEYS = ("image", "intrinsics", "extrinsics", "near", "far")
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+# ``timings=``'s keys: (first span, last span[, divisor attribute]).
+_ENCODE_TIMINGS = {
+    "A_match_s": ("encode.match", "encode.match"),
+    "A_geometry_s": ("encode.geometry", "encode.geometry"),
+    "B_trunk_s": ("encode.trunk", "encode.trunk"),
+    "B_concat_s": ("encode.concat", "encode.concat"),
+    "C1_ptf_s": ("encoder.ptf", "encoder.ptf"),
+    "C2_head_s": ("encoder.head", "encoder.head"),
+}
+_SCENE_TIMINGS = {
+    "encoder_s": ("encode", "encode"),
+    "decoder_s_per_view": ("decode", "decode", "views"),
+    "metrics_s": ("scene.metrics", "scene.metrics"),
+    "dumps_s": ("scene.readback", "scene.dumps"),
+    "ply_s": ("scene.ply", "scene.ply"),
+    "video_s": ("scene.video", "scene.video"),
+}
 
 
-def _save_image(array: np.ndarray, path: Path) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray((np.clip(np.asarray(array), 0, 1) * 255).astype(np.uint8)).save(path)
+def _save_image(array: np.ndarray, path: Path, kind: str) -> None:
+    """One PNG file: a ``dumps.png`` span, counted in ``png_files`` and
+    ``png_bytes``."""
+    with span("dumps.png", kind=kind):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray((np.clip(np.asarray(array), 0, 1) * 255).astype(np.uint8)).save(path)
+    if active() is not None:
+        count("png_files", 1)
+        count("png_bytes", path.stat().st_size)
 
 
 def make_chunked_encode(
@@ -90,28 +110,24 @@ def make_chunked_encode(
     running-average BN; with batch-statistics BN each chunk is normalized
     with its own statistics, as in JAX.
 
+    The phases are spans: ``encode.match``, ``encode.geometry``, one
+    ``encode.trunk`` a chunk (attribute ``chunk``, its first view),
+    ``encode.concat``, ``encoder.ptf`` and ``encoder.head``.
     ``timings``, if given, collects each phase's seconds (host clock
-    around synchronized device work): "A_match_s", "A_geometry_s",
-    "B_trunk_s" (one entry a chunk), "B_concat_s", "C1_ptf_s" and
-    "C2_head_s"."""
+    around synchronized device work, ``utils/profiling.py::timed``):
+    "A_match_s", "A_geometry_s", "B_trunk_s" (one entry a chunk),
+    "B_concat_s", "C1_ptf_s" and "C2_head_s"."""
     cfg = encoder.cfg
 
     def encode(context: dict[str, torch.Tensor]) -> dict[str, Any]:
+        with timed(timings, _ENCODE_TIMINGS):
+            return _encode(context)
+
+    def _encode(context):
         images = context["image"]
         b, v, h, w, _ = images.shape
         if b != 1:
             raise ValueError(f"the chunked whole-scene encode takes one scene, got {b}")
-        device = images.device
-        if timings is not None:
-            _sync(device)
-        clock = [time.perf_counter()]
-
-        def mark(label):
-            if timings is not None:
-                _sync(device)
-                now = time.perf_counter()
-                timings.setdefault(label, []).append(now - clock[0])
-                clock[0] = now
 
         def sub(sl, extra=None):
             d = {k: x[:, sl] for k, x in context.items() if k in _VIEW_KEYS}
@@ -123,47 +139,46 @@ def make_chunked_encode(
         lo, hi = rank * (v // world), (rank + 1) * (v // world)
         step = view_chunk or hi - lo
         chunks = [slice(s, min(s + step, hi)) for s in range(lo, hi, step)]
-        with synced_batch_norm(encoder, group):
-            match_bv = torch.cat([encoder(sub(sl), stage="match")["match"] for sl in chunks],
-                                 dim=1)
-        match_bv = all_gather_plain(match_bv, group, dim=1)
+        with span("encode.match"):
+            with synced_batch_norm(encoder, group):
+                match_bv = torch.cat([encoder(sub(sl), stage="match")["match"]
+                                      for sl in chunks], dim=1)
+            match_bv = all_gather_plain(match_bv, group, dim=1)
         mh, mw = match_bv.shape[2:4]
-        mark("A_match_s")
 
-        src_idx, src_T_cur, src_K, cur_invK = sweep_geometry(
-            context["extrinsics"][0], context["intrinsics"][0], cfg.num_views, (mh, mw))
-        mark("A_geometry_s")
+        with span("encode.geometry"):
+            src_idx, src_T_cur, src_K, cur_invK = sweep_geometry(
+                context["extrinsics"][0], context["intrinsics"][0], cfg.num_views, (mh, mw))
 
         outs = []
         for sl in chunks:
-            extra = {
-                "match_src": match_bv[0][src_idx[sl]][None],
-                "src_T_cur": src_T_cur[None, sl],
-                "src_K": src_K[None, sl],
-                "cur_invK": cur_invK[None, sl],
-            }
-            with synced_batch_norm(encoder, group):
-                outs.append(encoder(sub(sl, extra), stage="trunk_chunk"))
-            mark("B_trunk_s")
-        trunk = {k: all_gather_plain(torch.cat([o[k] for o in outs], dim=1), group, dim=1)
-                 for k in outs[0]}
-        del outs
-        mark("B_concat_s")
+            with span("encode.trunk", chunk=sl.start):
+                extra = {
+                    "match_src": match_bv[0][src_idx[sl]][None],
+                    "src_T_cur": src_T_cur[None, sl],
+                    "src_K": src_K[None, sl],
+                    "cur_invK": cur_invK[None, sl],
+                }
+                with synced_batch_norm(encoder, group):
+                    outs.append(encoder(sub(sl, extra), stage="trunk_chunk"))
+        with span("encode.concat"):
+            trunk = {k: all_gather_plain(torch.cat([o[k] for o in outs], dim=1), group, dim=1)
+                     for k in outs[0]}
+            del outs
         if trunk_only:
             return trunk
 
         # JAX takes fuse_views_bucketed above 8 views, for XLA's static
         # shapes; here that is fuse_views itself (models/ptf.py).
-        state = fuse_views(
-            trunk["feat_v"][0], trunk["coords_v"][0], trunk["dens_v"][0], trunk["wt_v"][0],
-            trunk["depth_v"][0], context["extrinsics"][0], context["intrinsics"][0], (h, w),
-            encoder.fuse.gru,
-        )
-        mark("C1_ptf_s")
+        with span("encoder.ptf"):
+            state = fuse_views(
+                trunk["feat_v"][0], trunk["coords_v"][0], trunk["dens_v"][0], trunk["wt_v"][0],
+                trunk["depth_v"][0], context["extrinsics"][0], context["intrinsics"][0], (h, w),
+                encoder.fuse.gru,
+            )
 
         g, scales, rotations = encoder.fuse.head(state, context["intrinsics"][0, 0], (h, w))
         gaussians = Gaussians(*(x[None] for x in g))
-        mark("C2_head_s")
         num_valid = gaussians.mask.sum(-1)
         return {
             "gaussians": gaussians,
@@ -199,97 +214,103 @@ def run_test(
     under ``checkpointing.load`` if there is one, else initializes it from
     ``cfg.seed``.  ``lpips``: an ``LPIPS`` module on ``device``
     (``training/lpips.py::make_lpips``), or None for no LPIPS score.
+
+    Spans (``utils/profiling.py``; nothing without an active recorder):
+    ``run_test.setup``; per scene ``scene`` (the scene's name its unit)
+    with ``scene.upload``, ``encode`` (the chunked encode's phases, or the
+    encoder's spans), ``decode`` (a ``render`` a view), ``scene.metrics``,
+    ``scene.readback`` (the host copies), ``scene.dumps`` (a ``dumps.png``
+    a file, attribute ``kind``), ``scene.ply`` and ``scene.video``; then
+    ``run_test.stats``.  Each read or copy that waits for the device is
+    counted in ``host_syncs``; the PNGs in ``png_files`` and ``png_bytes``.
     ``timings``, if given, collects per scene "encoder_s",
     "decoder_s_per_view", "metrics_s" and "dumps_s" (host clock around
-    synchronized device work), "ply_s" with ``test.save_ply``, "video_s"
-    with ``test.save_video``, and with ``test.encode_view_chunk`` the
-    chunked encode's phases (``make_chunked_encode``).
+    synchronized device work: the spans ``encode``, ``decode``,
+    ``scene.metrics``, ``scene.readback`` to ``scene.dumps``), "ply_s"
+    with ``test.save_ply``, "video_s" with ``test.save_video``, and with
+    ``test.encode_view_chunk`` the chunked encode's phases
+    (``make_chunked_encode``).  Without it nothing synchronizes but the
+    reads; ``benchmark.json``'s encoder and decoder times are CUDA event
+    pairs read after the scene's dropped-instance count.
 
     ``test.view_shard`` under a multi-process launch (world size > 1):
     every rank runs this loop, each scene's encode split over the ranks
     when they divide its context views (else, with a note, the unsharded
     encode), and only rank 0 writes files."""
     device = resolve_device(device)
-    group = None
-    if cfg.test.view_shard and maybe_initialize_distributed(device):
-        device = rank_device(device)
-        group = make_group("auto")
-    rank, world = group_rank(group)
-    if max_scenes is None:
-        max_scenes = cfg.test.max_scenes
-        if max_scenes is None and cfg.dataset.name == "synthetic":
-            max_scenes = 4  # the synthetic stream is infinite
-    out_dir = Path(cfg.test.output_path)
-    benchmarker = Benchmarker()
-    if batches is None:
-        from ..main import make_batches  # the CLI's dataset routing
+    with span("run_test.setup"):
+        group = None
+        if cfg.test.view_shard and maybe_initialize_distributed(device):
+            device = rank_device(device)
+            group = make_group("auto")
+        rank, world = group_rank(group)
+        if max_scenes is None:
+            max_scenes = cfg.test.max_scenes
+            if max_scenes is None and cfg.dataset.name == "synthetic":
+                max_scenes = 4  # the synthetic stream is infinite
+        out_dir = Path(cfg.test.output_path)
+        benchmarker = Benchmarker()
+        if batches is None:
+            from ..main import make_batches  # the CLI's dataset routing
 
-        batches = make_batches(cfg, "test", device=device, replicated=world > 1)
-    if state is None and cfg.checkpointing.load is not None:
-        step = latest_step(cfg.checkpointing.load)
-        if step is not None:
-            state = load_checkpoint(cfg.checkpointing.load, step)["encoder"]
+            batches = make_batches(cfg, "test", device=device, replicated=world > 1)
+        if state is None and cfg.checkpointing.load is not None:
+            step = latest_step(cfg.checkpointing.load)
+            if step is not None:
+                state = load_checkpoint(cfg.checkpointing.load, step)["encoder"]
 
-    encoder = make_encoder(
-        dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
-        device=device, seed=cfg.seed,
-    )
-    if state is not None:
-        if "params" in state:
-            load_flax_variables(encoder, state)
-        else:
-            encoder.load_state_dict(state, strict=True)
-    encode = encoder
-    if cfg.test.encode_view_chunk:
-        encode = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings)
-    if world > 1:
-        unsharded = encode
-        sharded = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings, group=group)
-
-        def encode(context):
-            # Exact only when the views divide the ranks (padding with
-            # duplicate views would change PTF's merges), as in JAX.
-            v_ctx = context["image"].shape[1]
-            if v_ctx % world == 0:
-                return sharded(context)
-            print(f"[test] view_shard: {v_ctx} views not divisible by {world} devices — "
-                  "unsharded encode for this scene", flush=True)
-            return unsharded(context)
-    decoder_cfg = cfg.decoder
-    if cfg.test.render_capacity_factor is not None:
-        decoder_cfg = dataclasses.replace(
-            cfg.decoder, capacity_factor=cfg.test.render_capacity_factor
+        encoder = make_encoder(
+            dataclasses.replace(cfg.encoder, train_bn=cfg.test.bn_batch_stats),
+            device=device, seed=cfg.seed,
         )
+        if state is not None:
+            if "params" in state:
+                load_flax_variables(encoder, state)
+            else:
+                encoder.load_state_dict(state, strict=True)
+        encode = encoder
+        if cfg.test.encode_view_chunk:
+            encode = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings)
+        if world > 1:
+            unsharded = encode
+            sharded = make_chunked_encode(encoder, cfg.test.encode_view_chunk, timings, group=group)
+
+            def encode(context):
+                # Exact only when the views divide the ranks (padding with
+                # duplicate views would change PTF's merges), as in JAX.
+                v_ctx = context["image"].shape[1]
+                if v_ctx % world == 0:
+                    return sharded(context)
+                print(f"[test] view_shard: {v_ctx} views not divisible by {world} devices — "
+                      "unsharded encode for this scene", flush=True)
+                return unsharded(context)
+        decoder_cfg = cfg.decoder
+        if cfg.test.render_capacity_factor is not None:
+            decoder_cfg = dataclasses.replace(
+                cfg.decoder, capacity_factor=cfg.test.render_capacity_factor
+            )
 
     def on_device(views: dict, keys) -> dict:
-        return {k: torch.as_tensor(views[k]).to(device, torch.float32)
-                for k in keys if k in views}
+        return {k: upload(views[k], device, "scene.upload") for k in keys if k in views}
 
-    def record(key, seconds):
-        if timings is not None:
-            timings.setdefault(key, []).append(seconds)
-
-    per_scene: list[dict[str, Any]] = []
     chunk = cfg.test.render_chunk_size
-    for scene_i, batch in enumerate(batches):
-        if max_scenes is not None and scene_i >= max_scenes:
-            break
+
+    def test_scene(batch) -> dict[str, Any]:
+        """One scene: the spans of ``run_test``'s docstring; its stats entry."""
         scene = batch["scene"][0]
-        context = on_device(batch["context"], _VIEW_KEYS)
-        target = on_device(batch["target"], (*_VIEW_KEYS, "depth"))
+        with span("scene.upload"):
+            context = on_device(batch["context"], _VIEW_KEYS)
+            target = on_device(batch["target"], (*_VIEW_KEYS, "depth"))
         test_fvs = int(batch["target"].get("test_fvs", 0) or 0)
         h, w = target["image"].shape[2:4]
         v = target["image"].shape[1]
 
         with torch.no_grad():
-            _sync(device)
-            t0 = time.perf_counter()
-            with benchmarker.time("encoder"):
+            with span("encode"), benchmarker.time("encoder"):
                 results = encode(context)
-            t1 = time.perf_counter()
             colors, depths = [], []
-            dropped = torch.zeros((), dtype=torch.int64, device=device)
-            with benchmarker.time("decoder", num_calls=v):
+            with span("decode", views=v), benchmarker.time("decoder", num_calls=v):
+                dropped = torch.zeros((), dtype=torch.int64, device=device)
                 for s in range(0, v, chunk):
                     sl = slice(s, min(s + chunk, v))
                     out = render_views(
@@ -300,36 +321,40 @@ def run_test(
                     colors.append(out.color[0])
                     depths.append(out.depth[0])
                     dropped = dropped + out.dropped.sum()
-            t2 = time.perf_counter()
-            color = torch.cat(colors)  # (v, h, w, 3)
-            depth = torch.cat(depths)  # (v, h, w)
-            gt = target["image"][0]
-            dropped_instances = int(dropped)
-            entry: dict[str, Any] = {
-                "scene": scene,
-                "num_views": v,
-                "num_gaussians": float(results["num_gaussians"][0]),
-                "gs_ratio": float(results["gs_ratio"][0]),
-                "dropped_instances": float(dropped_instances),
-            }
+            with span("scene.metrics"):
+                color = torch.cat(colors)  # (v, h, w, 3)
+                depth = torch.cat(depths)  # (v, h, w)
+                gt = target["image"][0]
+                dropped_instances = host_value(dropped, "scene.metrics")
+                benchmarker.resolve()  # the encoder's and decoder's events are done
+                entry: dict[str, Any] = {
+                    "scene": scene,
+                    "num_views": v,
+                    "num_gaussians": float(host_value(results["num_gaussians"][0],
+                                                      "scene.metrics")),
+                    "gs_ratio": float(host_value(results["gs_ratio"][0], "scene.metrics")),
+                    "dropped_instances": float(dropped_instances),
+                }
 
-            def metric_block(pred, truth, prefix=""):
-                entry[prefix + "psnr"] = float(compute_psnr(truth, pred).mean())
-                entry[prefix + "ssim"] = float(compute_ssim(truth, pred).mean())
-                if lpips is not None and pred.shape[0] < 100:
-                    entry[prefix + "lpips"] = float(lpips(pred, truth).mean())
+                def metric_block(pred, truth, prefix=""):
+                    entry[prefix + "psnr"] = float(host_value(
+                        compute_psnr(truth, pred).mean(), "scene.metrics"))
+                    entry[prefix + "ssim"] = float(host_value(
+                        compute_ssim(truth, pred).mean(), "scene.metrics"))
+                    if lpips is not None and pred.shape[0] < 100:
+                        entry[prefix + "lpips"] = float(host_value(
+                            lpips(pred, truth).mean(), "scene.metrics"))
 
-            if test_fvs > 0:
-                # FVS: the LAST test_fvs targets are extrapolation
-                # (mw:427-443, targets[length-fvs_length:]).
-                metric_block(color[:-test_fvs], gt[:-test_fvs], "interpolation_")
-                metric_block(color[-test_fvs:], gt[-test_fvs:], "extrapolation_")
-            else:
-                metric_block(color, gt)
-            if cfg.test.eval_depth and "depth" in target:
-                for k, val in depth_metrics(target["depth"][0], depth).items():
-                    entry[f"depth_{k}"] = float(val)
-            t3 = time.perf_counter()
+                if test_fvs > 0:
+                    # FVS: the LAST test_fvs targets are extrapolation
+                    # (mw:427-443, targets[length-fvs_length:]).
+                    metric_block(color[:-test_fvs], gt[:-test_fvs], "interpolation_")
+                    metric_block(color[-test_fvs:], gt[-test_fvs:], "extrapolation_")
+                else:
+                    metric_block(color, gt)
+                if cfg.test.eval_depth and "depth" in target:
+                    for k, val in depth_metrics(target["depth"][0], depth).items():
+                        entry[f"depth_{k}"] = float(host_value(val, "scene.metrics"))
         if dropped_instances:
             print(
                 f"[test] WARNING {scene}: rasterizer dropped {dropped_instances} "
@@ -338,79 +363,89 @@ def run_test(
                 flush=True,
             )
 
-        if rank == 0:  # one writer under view_shard
-            # Frame dumps (FVS split into interpolation/extrapolation dirs).
-            color_np, gt_np = color.cpu().numpy(), gt.cpu().numpy()
-            for vi in range(v):
-                sub = ("extrapolation" if vi >= v - test_fvs else "interpolation"
-                       ) if test_fvs > 0 else "color"
-                _save_image(color_np[vi], out_dir / scene / sub / f"{vi:04}.png")
-                _save_image(gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png")
-            for vi, image in enumerate(context["image"][0].cpu().numpy()):
-                _save_image(image, out_dir / scene / "context" / f"{vi:04}.png")
-            # Depth colormap dumps (reference mw:381-416): the encoder's
-            # context depths and the rendered target depths.
-            if cfg.test.save_depth:
-                for sub, maps in (("depth_pred", results["depth_s-1"][0]),
-                                  ("depth_render", depth)):
-                    for vi, d in enumerate(maps.cpu().numpy()):
-                        _save_image(depth_to_color(d), out_dir / scene / sub / f"{vi:04}.png")
-        t4 = time.perf_counter()
-        record("encoder_s", t1 - t0)
-        record("decoder_s_per_view", (t2 - t1) / v)
-        record("metrics_s", t3 - t2)
-        record("dumps_s", t4 - t3)
+        writer = rank == 0  # one writer under view_shard
+        with span("scene.readback"):
+            if writer:
+                color_np = host_array(color, "scene.readback")
+                gt_np = host_array(gt, "scene.readback")
+                context_np = host_array(context["image"][0], "scene.readback")
+                # Depth colormap dumps (reference mw:381-416): the encoder's
+                # context depths and the rendered target depths.
+                depth_np = {sub: host_array(maps, "scene.readback")
+                            for sub, maps in (("depth_pred", results["depth_s-1"][0]),
+                                              ("depth_render", depth))
+                            } if cfg.test.save_depth else {}
+        with span("scene.dumps"):
+            if writer:
+                # Frame dumps (FVS split into interpolation/extrapolation dirs).
+                for vi in range(v):
+                    sub = ("extrapolation" if vi >= v - test_fvs else "interpolation"
+                           ) if test_fvs > 0 else "color"
+                    _save_image(color_np[vi], out_dir / scene / sub / f"{vi:04}.png", "color")
+                    _save_image(gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png", "gt")
+                for vi, image in enumerate(context_np):
+                    _save_image(image, out_dir / scene / "context" / f"{vi:04}.png", "context")
+                for sub, maps in depth_np.items():
+                    for vi, d in enumerate(maps):
+                        _save_image(depth_to_color(d), out_dir / scene / sub / f"{vi:04}.png",
+                                    "depth")
 
         # Gaussian point-cloud export (reference encoder visualizer /
         # export pathway; covariances already decomposed by the adapter).
-        if cfg.test.save_ply and rank == 0:
-            g = results["gaussians"]
-            viz = results["visualizations"]
-            export_ply(
-                g.means[0].cpu().numpy(),
-                viz["scales"][0].cpu().numpy(),
-                viz["rotations"][0].cpu().numpy(),
-                g.harmonics[0].cpu().numpy(),
-                g.opacities[0].cpu().numpy(),
-                out_dir / scene / "gaussians.ply",
-                mask=g.mask[0].cpu().numpy(),
-            )
-            record("ply_s", time.perf_counter() - t4)
+        if cfg.test.save_ply and writer:
+            with span("scene.ply"):
+                g = results["gaussians"]
+                viz = results["visualizations"]
+                export_ply(
+                    *(host_array(x[0], "scene.ply") for x in (
+                        g.means, viz["scales"], viz["rotations"], g.harmonics, g.opacities)),
+                    out_dir / scene / "gaussians.ply",
+                    mask=host_array(g.mask[0], "scene.ply"),
+                )
 
         # Trajectory videos (reference mw:654-819).
-        if cfg.test.save_video and rank == 0:
-            t5 = time.perf_counter()
-            vid_args = (
-                decoder_cfg, results["gaussians"], context["extrinsics"][0],
-                context["intrinsics"][0], float(context["near"][0, 0]),
-                float(context["far"][0, 0]), (h, w),
-            )
-            render_video_wobble(*vid_args, out_dir / scene / "wobble.mp4")
-            render_video_interpolation(*vid_args, out_dir / scene / "interpolation.mp4")
-            record("video_s", time.perf_counter() - t5)
+        if cfg.test.save_video and writer:
+            with span("scene.video"):
+                vid_args = (
+                    decoder_cfg, results["gaussians"], context["extrinsics"][0],
+                    context["intrinsics"][0],
+                    float(host_value(context["near"][0, 0], "scene.video")),
+                    float(host_value(context["far"][0, 0], "scene.video")), (h, w),
+                )
+                render_video_wobble(*vid_args, out_dir / scene / "wobble.mp4")
+                render_video_interpolation(*vid_args, out_dir / scene / "interpolation.mp4")
+        return entry
+
+    per_scene: list[dict[str, Any]] = []
+    for scene_i, batch in enumerate(batches):
+        if max_scenes is not None and scene_i >= max_scenes:
+            break
+        with timed(timings, _SCENE_TIMINGS), span("scene", unit=batch["scene"][0]):
+            entry = test_scene(batch)
         per_scene.append(entry)
-        print(f"[test] {scene}: " + " ".join(
+        print(f"[test] {entry['scene']}: " + " ".join(
             f"{k}={val:.4g}" for k, val in entry.items() if k != "scene"
         ), flush=True)
 
-    # Weighted per-scene averages (weights = view counts; mw:479-504) of
-    # every key any scene has, each over the scenes that have it (the JAX
-    # harness takes the first scene's keys only, so a run that mixes FVS
-    # and plain scenes loses the keys its first scene lacks).
-    summary: dict[str, float] = {}
-    if per_scene:
-        weights = np.asarray([e["num_views"] for e in per_scene], np.float64)
-        for key in dict.fromkeys(k for e in per_scene for k in e):
-            if key in ("scene", "num_views"):
-                continue
-            vals = np.asarray([e.get(key, np.nan) for e in per_scene])
-            ok = np.isfinite(vals)
-            if ok.any():
-                summary[key] = float(np.sum(vals[ok] * weights[ok]) / np.sum(weights[ok]))
-    if rank == 0:
-        benchmarker.dump(out_dir / "benchmark.json")
-        benchmarker.dump_memory(out_dir / "peak_memory.json")
-        with open(out_dir / "stats.json", "w") as f:
-            json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
+    with span("run_test.stats"):
+        # Weighted per-scene averages (weights = view counts; mw:479-504) of
+        # every key any scene has, each over the scenes that have it (the JAX
+        # harness takes the first scene's keys only, so a run that mixes FVS
+        # and plain scenes loses the keys its first scene lacks).
+        summary: dict[str, float] = {}
+        if per_scene:
+            weights = np.asarray([e["num_views"] for e in per_scene], np.float64)
+            for key in dict.fromkeys(k for e in per_scene for k in e):
+                if key in ("scene", "num_views"):
+                    continue
+                vals = np.asarray([e.get(key, np.nan) for e in per_scene])
+                ok = np.isfinite(vals)
+                if ok.any():
+                    summary[key] = float(np.sum(vals[ok] * weights[ok]) / np.sum(weights[ok]))
+        if rank == 0:
+            benchmarker.dump(out_dir / "benchmark.json")
+            benchmarker.dump_memory(out_dir / "peak_memory.json")
+            with open(out_dir / "stats.json", "w") as f:
+                json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
     print("[test] summary:", json.dumps(summary, indent=2), flush=True)
     return summary

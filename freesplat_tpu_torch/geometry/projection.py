@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import synced_inside, upload
+
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -100,9 +102,10 @@ def sample_image_grid(
 def get_fov(intrinsics: torch.Tensor) -> torch.Tensor:
     """Horizontal/vertical FoV (radians) from normalized intrinsics: (..., 2)."""
     intrinsics_inv = torch.linalg.inv(intrinsics)
+    synced_inside("projection.get_fov")
 
     def process(vector):
-        v = torch.tensor(vector, dtype=intrinsics.dtype, device=intrinsics.device)
+        v = upload(vector, intrinsics.device, "projection.get_fov", intrinsics.dtype)
         v = torch.einsum("...ij,j->...i", intrinsics_inv, v)
         return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 

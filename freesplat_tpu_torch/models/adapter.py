@@ -12,6 +12,7 @@ import torch
 
 from ..ops.gaussians import build_covariance
 from ..ops.mathutil import safe_normalize
+from ..utils.profiling import synced_inside, upload
 
 
 @dataclass(frozen=True)
@@ -68,9 +69,9 @@ def scale_multiplier(
 ) -> torch.Tensor:
     """Pixel-size scale factor (reference ``get_scale_multiplier``)."""
     h, w = image_shape
-    pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32,
-                              device=intrinsics.device)
+    pixel_size = upload([1.0 / w, 1.0 / h], intrinsics.device, "adapter.scale_multiplier")
     inv = torch.linalg.inv(intrinsics[..., :2, :2])
+    synced_inside("adapter.scale_multiplier")
     xy = multiplier * torch.einsum("...ij,j->...i", inv, pixel_size)
     return xy.sum(-1)
 

@@ -15,6 +15,7 @@ import torch
 from ..ops.rasterizer import rasterize, render_capacity
 from ..ops.rasterizer_ref import render_reference
 from ..utils.device import resolve_device
+from ..utils.profiling import upload
 from .types import Gaussians
 
 
@@ -50,9 +51,7 @@ def render_view(
     means = gaussians.means
     covs = gaussians.covariances
     opac = gaussians.masked_opacities()
-    background = torch.tensor(
-        cfg.background_color, dtype=torch.float32, device=means.device
-    )
+    background = upload(cfg.background_color, means.device, "decoder.render_view")
     if cfg.scale_invariant:
         # Rescale the scene by 1/near so numerics stay in a good range.
         s = 1.0 / near

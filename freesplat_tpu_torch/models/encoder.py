@@ -23,6 +23,7 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.jax_random import lecun_normal, param_key, prng_key
+from ..utils.profiling import span, synced_inside
 from .adapter import GaussianAdapterCfg, build_gaussians, unproject_depth
 from .backbone import FEATURE_CHANNELS, EfficientNetV2S
 from .cost_volume import CostVolume
@@ -110,6 +111,7 @@ def sweep_geometry(extr, intr, num_views: int, match_hw: tuple[int, int]):
     k44[:, :3, :3] = k_pix
     w2c = torch.linalg.inv(extr)
     src_T_cur = torch.einsum("vsij,vjk->vsik", w2c[src_idx], extr)
+    synced_inside("encoder.sweep_geometry", 2)
     return src_idx, src_T_cur, k44[src_idx], torch.linalg.inv(k44)
 
 
@@ -123,25 +125,27 @@ class FuseScene(nn.Module):
         self.to_gaussians = nn.Linear(cfg.d_feature, cfg.num_surfaces * (2 + cfg.adapter.d_in))
 
     def forward(self, feat, coords, dens, wt, depth, extr, intr, image_shape):
-        state = fuse_views(feat, coords, dens, wt, depth, extr, intr, image_shape, self.gru)
+        with span("encoder.ptf"):
+            state = fuse_views(feat, coords, dens, wt, depth, extr, intr, image_shape, self.gru)
         return self.head(state, intr[0], image_shape)
 
     def head(self, state, intr0, image_shape):
         """Fused buffer -> (Gaussians of every slot, scales, rotations)."""
-        raw = self.to_gaussians(F.relu(state.feat))
-        opacities = torch.sigmoid(raw[..., 0])
-        params = build_gaussians(
-            self.cfg.adapter, raw[..., 2:], state.depth,
-            state.extrinsics[:, :3, :3], intr0, image_shape,
-        )
-        gaussians = Gaussians(
-            means=state.coords,
-            covariances=params["covariances"],
-            harmonics=params["harmonics"],
-            opacities=torch.where(state.valid, opacities, 0.0),
-            mask=state.valid,
-        )
-        return gaussians, params["scales"], params["rotations"]
+        with span("encoder.head"):
+            raw = self.to_gaussians(F.relu(state.feat))
+            opacities = torch.sigmoid(raw[..., 0])
+            params = build_gaussians(
+                self.cfg.adapter, raw[..., 2:], state.depth,
+                state.extrinsics[:, :3, :3], intr0, image_shape,
+            )
+            gaussians = Gaussians(
+                means=state.coords,
+                covariances=params["covariances"],
+                harmonics=params["harmonics"],
+                opacities=torch.where(state.valid, opacities, 0.0),
+                mask=state.valid,
+            )
+            return gaussians, params["scales"], params["rotations"]
 
 
 class EncoderFreeSplat(nn.Module):
@@ -169,11 +173,12 @@ class EncoderFreeSplat(nn.Module):
         b, v, h, w, _ = images.shape
         if h % 32 or w % 32:
             raise ValueError(f"image shape ({h}, {w}) must be divisible by 32")
-        feats = self.backbone(images.reshape(b * v, h, w, 3))
-        match_feats = feats[1]
-        if hasattr(self, "match_proj"):
-            match_feats = self.match_proj(match_feats)
-        return feats, match_feats.reshape(b, v, *match_feats.shape[1:])
+        with span("encoder.backbone"):
+            feats = self.backbone(images.reshape(b * v, h, w, 3))
+            match_feats = feats[1]
+            if hasattr(self, "match_proj"):
+                match_feats = self.match_proj(match_feats)
+            return feats, match_feats.reshape(b, v, *match_feats.shape[1:])
 
     def trunk(self, context: dict[str, torch.Tensor], stage: str = "full") -> dict[str, Any]:
         """Backbone -> cost volume -> CVEncoder -> DepthDecoder -> hr_skip:
@@ -192,33 +197,37 @@ class EncoderFreeSplat(nn.Module):
         feats, match_bv = self._features(images)
         mh, mw = match_bv.shape[2:4]
 
-        if stage == "trunk_chunk":
-            match_src = context["match_src"]
-            src_T_cur, src_K, cur_invK = (context[k] for k in ("src_T_cur", "src_K", "cur_invK"))
-        else:
-            geo = [sweep_geometry(extr[i], intr[i], cfg.num_views, (mh, mw)) for i in range(b)]
-            src_idx, src_T_cur, src_K, cur_invK = (torch.stack(x) for x in zip(*geo))
-            match_src = torch.stack([match_bv[i][src_idx[i]] for i in range(b)])
-        ns = src_T_cur.shape[2]
-        cost_volume = self.cost_volume(
-            match_bv.reshape(b * v, mh, mw, -1),
-            match_src.reshape(b * v, ns, mh, mw, -1),
-            src_T_cur.reshape(b * v, ns, 4, 4),
-            src_K.reshape(b * v, ns, 4, 4),
-            cur_invK.reshape(b * v, 4, 4),
-            context["near"][:, :1].expand(b, v).reshape(-1),
-            context["far"][:, :1].expand(b, v).reshape(-1),
-        )  # (b*v, mh, mw, D)
+        with span("encoder.cost_volume"):
+            if stage == "trunk_chunk":
+                match_src = context["match_src"]
+                src_T_cur, src_K, cur_invK = (context[k]
+                                              for k in ("src_T_cur", "src_K", "cur_invK"))
+            else:
+                geo = [sweep_geometry(extr[i], intr[i], cfg.num_views, (mh, mw))
+                       for i in range(b)]
+                src_idx, src_T_cur, src_K, cur_invK = (torch.stack(x) for x in zip(*geo))
+                match_src = torch.stack([match_bv[i][src_idx[i]] for i in range(b)])
+            ns = src_T_cur.shape[2]
+            cost_volume = self.cost_volume(
+                match_bv.reshape(b * v, mh, mw, -1),
+                match_src.reshape(b * v, ns, mh, mw, -1),
+                src_T_cur.reshape(b * v, ns, 4, 4),
+                src_K.reshape(b * v, ns, 4, 4),
+                cur_invK.reshape(b * v, 4, 4),
+                context["near"][:, :1].expand(b, v).reshape(-1),
+                context["far"][:, :1].expand(b, v).reshape(-1),
+            )  # (b*v, mh, mw, D)
 
-        cv_feats = self.cv_encoder(cost_volume, feats[1:])
-        outputs = self.depth_decoder([feats[0]] + cv_feats)
+        with span("encoder.depth_net"):
+            cv_feats = self.cv_encoder(cost_volume, feats[1:])
+            outputs = self.depth_decoder([feats[0]] + cv_feats)
 
-        skip = F.relu(self.hr_skip(flat))
-        gauss_feats = outputs["output_s-1"][..., 1:] + skip
-        densities = torch.sigmoid(outputs["output_s-1"][..., :1])
-        depths = outputs["depth_s-1"][..., 0]
-        weights = outputs["depth_weights"]
-        means = unproject_depth(depths.reshape(b, v, h, w), intr, extr, (h, w))
+            skip = F.relu(self.hr_skip(flat))
+            gauss_feats = outputs["output_s-1"][..., 1:] + skip
+            densities = torch.sigmoid(outputs["output_s-1"][..., :1])
+            depths = outputs["depth_s-1"][..., 0]
+            weights = outputs["depth_weights"]
+            means = unproject_depth(depths.reshape(b, v, h, w), intr, extr, (h, w))
         return {
             "feat_v": gauss_feats.reshape(b, v, hw, cfg.d_feature),
             "coords_v": means.reshape(b, v, hw, 3),

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import upload
+
 
 def _same_pad(size: tuple[int, int], kernel: int, stride: int) -> tuple[int, ...]:
     """flax/TF ``padding="SAME"``: total max((ceil(n/s)-1)*s + k - n, 0),
@@ -165,7 +167,9 @@ def interpolate_bilinear(
     separable two-tap matmuls (the same weights as the JAX package), in
     float32 and returned in ``x``'s dtype."""
     n, h, w, c = x.shape
-    ry = torch.from_numpy(_resize_matrix(h, out_hw[0], align_corners)).to(x.device)
-    rx = torch.from_numpy(_resize_matrix(w, out_hw[1], align_corners)).to(x.device)
+    ry = upload(_resize_matrix(h, out_hw[0], align_corners), x.device,
+                "layers.interpolate_bilinear")
+    rx = upload(_resize_matrix(w, out_hw[1], align_corners), x.device,
+                "layers.interpolate_bilinear")
     out = torch.einsum("oh,nhwc->nowc", ry, x.float())
     return torch.einsum("pw,nowc->nopc", rx, out).to(x.dtype)

@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import synced_inside
 from .networks import positional_encoding
 
 
@@ -52,6 +53,7 @@ def _project_to_view(coords, extrinsic, intrinsic, image_shape):
     """Returns (pixel_index (G,), depth (G,), in_bounds (G,))."""
     h, w = image_shape
     w2c = torch.linalg.inv(extrinsic)
+    synced_inside("ptf.project_to_view")
     cam = coords @ w2c[:3, :3].T + w2c[:3, 3]
     z = cam[:, 2]
     fx, fy = intrinsic[0, 0] * w, intrinsic[1, 1] * h
@@ -205,6 +207,7 @@ def _fuse_one_view(
     if not inplace:
         packed, valid = packed.clone(), valid.clone()
     packed[winner[matched]] = fused[matched]
+    synced_inside("ptf.fuse_one_view", 2)
 
     # Unmerged pixels of view i claim their own slots.
     new = ~fusion_mask

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import span
 from .gather import take_rows
 from .rendering import (
     ALPHA_MAX, ALPHA_MIN, TILE, TRANSMITTANCE_EPS, Screen, preprocess_gaussians,
@@ -107,7 +109,9 @@ def bin_gaussians(
     # Only the first ``capacity`` raw instances are decoded (the cut comes
     # before the prune).
     kept = torch.minimum(torch.clamp(capacity - offsets, min=0), count)
-    n_slots = int(min(int(total), capacity))
+    n_slots = min(profiling.host_value(total, "render.binning"), capacity)
+    profiling.count("instances", total)
+    profiling.count("slots", n_slots)
     gid = torch.repeat_interleave(
         torch.arange(n, device=dev), kept, output_size=n_slots
     )
@@ -161,6 +165,7 @@ def bin_gaussians(
     sorted_ids = gid[order]
 
     tile_count = torch.bincount(tile, minlength=num_tiles)
+    profiling.synced_inside("render.binning", 4)  # the two mask selections, bincount's range
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     cap_dropped = torch.clamp(total - capacity, min=0)
     clamp_dropped = torch.clamp(tile_count - MAX_TILE_INSTANCES, min=0).sum()
@@ -665,15 +670,21 @@ def _rasterize(composite, means, covariances, harmonics, opacities, extrinsics,
         capacity = render_capacity(means.shape[0], 3.0)
     capacity = -(-capacity // CHUNK) * CHUNK
 
-    screen = preprocess_gaussians(
-        means, covariances, harmonics, opacities, extrinsics, intrinsics,
-        image_shape, sh_degree,
-    )
-    binning = bin_gaussians(screen, image_shape, capacity)
-    inst = build_instance_rows(screen, binning)
-    tw = _tile_grid(image_shape)[1]
-    out = composite(inst, binning.tile_start, binning.tile_count, tw)
-    color, depth, alpha = finish_image(tiles_to_image(out, tw), image_shape, background)
+    with span("render"):
+        with span("render.preprocess"):
+            screen = preprocess_gaussians(
+                means, covariances, harmonics, opacities, extrinsics, intrinsics,
+                image_shape, sh_degree,
+            )
+        with span("render.binning"):
+            binning = bin_gaussians(screen, image_shape, capacity)
+        with span("render.rows"):
+            inst = build_instance_rows(screen, binning)
+        tw = _tile_grid(image_shape)[1]
+        with span("render.composite"):
+            out = composite(inst, binning.tile_start, binning.tile_count, tw)
+        with span("render.finish"):
+            color, depth, alpha = finish_image(tiles_to_image(out, tw), image_shape, background)
     if return_stats:
         stats = {"dropped": binning.dropped, "num_instances": binning.num_instances}
         return color, depth, alpha, stats

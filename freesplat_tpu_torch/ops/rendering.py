@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.projection import get_fov, homogenize_points
+from ..utils.profiling import synced_inside, upload
 from .mathutil import safe_normalize
 from .sh import eval_sh
 
@@ -87,6 +88,7 @@ def preprocess_gaussians(
     focal_y = h / (2.0 * tan_fov_y)
 
     w2c = torch.linalg.inv(extrinsics)
+    synced_inside("rendering.preprocess_gaussians")
     means_h = homogenize_points(means)
     cam_pts = (means_h @ w2c.T)[:, :3]
     depths = cam_pts[:, 2]
@@ -95,8 +97,8 @@ def preprocess_gaussians(
     z_safe = torch.where(in_front, depths, 1.0)
 
     # near/far only affect the z row, which is never read back.
-    near = torch.tensor(0.01, dtype=means.dtype, device=means.device)
-    far = torch.tensor(100.0, dtype=means.dtype, device=means.device)
+    near = upload(0.01, means.device, "rendering.preprocess_gaussians", means.dtype)
+    far = upload(100.0, means.device, "rendering.preprocess_gaussians", means.dtype)
     proj = get_projection_matrix(near, far, fov_x, fov_y)
     full_proj = proj @ w2c
     p_hom = means_h @ full_proj.T

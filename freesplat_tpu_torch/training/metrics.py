@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import upload
+
 
 def compute_psnr(ground_truth: torch.Tensor, predicted: torch.Tensor) -> torch.Tensor:
     """(b, h, w, c) pairs -> (b,) PSNR in dB (inputs clipped to [0, 1])."""
@@ -44,7 +46,7 @@ def compute_ssim(
     gt = torch.clamp(ground_truth, 0.0, 1.0).float()
     pr = torch.clamp(predicted, 0.0, 1.0).float()
     b, h, w, c = gt.shape
-    kernel = torch.from_numpy(_gaussian_kernel(win_size, sigma)).to(gt.device)[None, None]
+    kernel = upload(_gaussian_kernel(win_size, sigma), gt.device, "metrics.compute_ssim")[None, None]
 
     def filt(x):
         # Per-channel VALID convolution: (b, h, w, c) -> (b * c, 1, oh, ow).

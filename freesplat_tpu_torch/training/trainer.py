@@ -28,6 +28,7 @@ from ..models.backbone import synced_batch_norm
 from ..models.decoder import DecoderCfg, render_views
 from ..models.encoder import EncoderFreeSplatCfg, make_encoder
 from ..parallel.distributed import group_rank
+from ..utils.profiling import count, host_value, span, timed, upload
 from .losses import LossCfg, total_loss
 from .metrics import compute_psnr
 from .schedule import OptimizerCfg, clip_grad_global_norm, make_optimizer, make_schedule
@@ -61,12 +62,15 @@ def _on_device(views: Mapping[str, Any], device: torch.device,
     """The view tensors on ``device``, with the sensor ``depth`` (when the
     batch has it) if ``depth``."""
     keys = (*_VIEW_KEYS, "depth") if depth else _VIEW_KEYS
-    return {k: torch.as_tensor(views[k]).to(device, torch.float32) for k in keys if k in views}
+    return {k: upload(views[k], device, "step.upload") for k in keys if k in views}
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+# ``timings=``'s keys: (first span, last span) of each phase.
+_STEP_TIMINGS = {
+    "forward_s": ("step.forward", "loss"),
+    "backward_s": ("step.backward", "step.backward"),
+    "optimizer_s": ("step.optimizer", "step.optimizer"),
+}
 
 
 @contextlib.contextmanager
@@ -108,7 +112,11 @@ def make_train_step(
     ``gs_ratio``, ``num_gaussians``, ``dropped_instances`` and one
     ``loss_<part>`` per loss term.  ``timings``, if given, collects per
     step "forward_s", "backward_s" and "optimizer_s" (host clock around
-    synchronized device work; the syncs cost the step its overlap)."""
+    synchronized device work; the syncs cost the step its overlap): the
+    view ``utils/profiling.py::timed`` takes of the spans ``step.forward``
+    to ``loss``, ``step.backward`` and ``step.optimizer``.  The spans
+    (and ``step.upload``, ``encoder``, the renders') go to the active
+    recorder, with the counter ``dropped_instances`` every step."""
     schedule = make_schedule(cfg.optimizer)
     world = group_rank(group)[1]
     dc = cfg.loss.depth
@@ -119,61 +127,55 @@ def make_train_step(
 
     def train_step(state: dict, batch: Mapping[str, Any],
                    timings: dict[str, list[float]] | None = None) -> tuple[dict, dict]:
+        with timed(timings, _STEP_TIMINGS):
+            return _step(state, batch)
+
+    def _step(state, batch):
         encoder, optimizer, step = state["encoder"], state["optimizer"], state["step"]
         params = list(encoder.parameters())
         device = params[0].device
-        context = _on_device(batch["context"], device)
-        target = _on_device(batch["target"], device, depth=depth_on)
+        with span("step.upload"):
+            context = _on_device(batch["context"], device)
+            target = _on_device(batch["target"], device, depth=depth_on)
         h, w = target["image"].shape[2:4]
 
-        if timings is not None:
-            _sync(device)
-        t0 = time.perf_counter()
-        with synced_batch_norm(encoder, group):
-            results = encoder(context)
-        output = render_views(
-            cfg.decoder, results["gaussians"], target["extrinsics"],
-            target["intrinsics"], target["near"], target["far"], (h, w),
-        )
-        depth_ctx = None
-        if depth_on:
-            depth_ctx = {
-                "rendered_depth": output.depth,
-                "gt_depth": target.get("depth"),
-                "intrinsics": target["intrinsics"],
-                "enc_depth": results.get("depth_s-1"),
-                "ctx_extrinsics": context["extrinsics"],
-                "ctx_intrinsics": context["intrinsics"],
-            }
-        loss, parts = total_loss(cfg.loss, output.color, target["image"], step, lpips,
-                                 depth_ctx=depth_ctx)
-        if timings is not None:
-            _sync(device)
-        t1 = time.perf_counter()
+        with span("step.forward"):
+            with span("encoder"), synced_batch_norm(encoder, group):
+                results = encoder(context)
+            output = render_views(
+                cfg.decoder, results["gaussians"], target["extrinsics"],
+                target["intrinsics"], target["near"], target["far"], (h, w),
+            )
+        with span("loss"):
+            depth_ctx = None
+            if depth_on:
+                depth_ctx = {
+                    "rendered_depth": output.depth,
+                    "gt_depth": target.get("depth"),
+                    "intrinsics": target["intrinsics"],
+                    "enc_depth": results.get("depth_s-1"),
+                    "ctx_extrinsics": context["extrinsics"],
+                    "ctx_intrinsics": context["intrinsics"],
+                }
+            loss, parts = total_loss(cfg.loss, output.color, target["image"], step, lpips,
+                                     depth_ctx=depth_ctx)
 
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if timings is not None:
-            _sync(device)
-        t2 = time.perf_counter()
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
 
-        # optax updates every leaf; a parameter the loss does not reach
-        # gets a zero gradient (Adam then leaves it where it is).
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            _all_reduce_mean([p.grad for p in params], group, world)
-        clip_grad_global_norm([p.grad for p in params], cfg.optimizer.gradient_clip_val)
-        for param_group in optimizer.param_groups:
-            param_group["lr"] = schedule(step)
-        optimizer.step()
-        if timings is not None:
-            _sync(device)
-            t3 = time.perf_counter()
-            timings.setdefault("forward_s", []).append(t1 - t0)
-            timings.setdefault("backward_s", []).append(t2 - t1)
-            timings.setdefault("optimizer_s", []).append(t3 - t2)
+        with span("step.optimizer"):
+            # optax updates every leaf; a parameter the loss does not reach
+            # gets a zero gradient (Adam then leaves it where it is).
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if group is not None:
+                _all_reduce_mean([p.grad for p in params], group, world)
+            clip_grad_global_norm([p.grad for p in params], cfg.optimizer.gradient_clip_val)
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = schedule(step)
+            optimizer.step()
 
         with torch.no_grad():
             metrics = {
@@ -188,6 +190,7 @@ def make_train_step(
             }
             if group is not None:
                 metrics = _reduce_metrics(metrics, group, world)
+        count("dropped_instances", metrics["dropped_instances"])
         return {**state, "step": step + 1}, metrics
 
     return train_step
@@ -236,7 +239,10 @@ def fit(
     next log point the values are on the host side of the pipeline, so
     reading them does not stall the device.  ``timings`` is passed to
     every step (see ``make_train_step``).  The loop, its validation and
-    checkpoints included, runs under ``deterministic_cudnn``.  ``group``:
+    checkpoints included, runs under ``deterministic_cudnn``.  Each step
+    is a ``step`` span with the step as its unit; logging, checkpoints
+    and validation are ``fit.log``, ``fit.checkpoint`` and
+    ``fit.validate`` spans.  ``group``:
     data-parallel ranks (``make_train_step``); every rank runs the loop,
     and the callbacks decide what each rank does (``main.train``: rank 0
     logs, checkpoints and validates)."""
@@ -247,7 +253,7 @@ def fit(
 
     def emit(entry):
         p_step, refs, dt = entry
-        vals = {k: float(v) for k, v in refs.items()}
+        vals = {k: float(host_value(v, "fit.emit")) for k, v in refs.items()}
         vals["steps_per_s"] = cfg.log_every / max(dt, 1e-9)
         if vals.get("dropped_instances", 0) > 0:
             print(
@@ -263,28 +269,35 @@ def fit(
     for batch in batches:
         if step >= max_steps:
             break
-        state, metrics = train_step(state, batch, timings=timings)
+        with span("step", unit=step):
+            state, metrics = train_step(state, batch, timings=timings)
         if log_fn is not None and step % cfg.log_every == 0:
             if pending is not None:
-                emit(pending)
+                with span("fit.log"):
+                    emit(pending)
             pending = (step, metrics, time.time() - t0)
             t0 = time.time()
         elif pending is not None and step - pending[0] >= 64:
             # Backpressure: the host runs at most ~64 steps ahead.
-            emit(pending)
+            with span("fit.log"):
+                emit(pending)
             pending = None
         sync = (
             (checkpoint_fn is not None and step % checkpoint_every == 0)
             or (val_fn is not None and step % val_every == 0)
         ) and step > 0
         if sync and pending is not None:
-            emit(pending)  # keep log order ahead of val/ckpt output
+            with span("fit.log"):
+                emit(pending)  # keep log order ahead of val/ckpt output
             pending = None
         if checkpoint_fn is not None and step > 0 and step % checkpoint_every == 0:
-            checkpoint_fn(step, state)
+            with span("fit.checkpoint"):
+                checkpoint_fn(step, state)
         if val_fn is not None and step > 0 and step % val_every == 0:
-            val_fn(step, state)
+            with span("fit.validate"):
+                val_fn(step, state)
         step += 1
     if pending is not None and log_fn is not None:
-        emit(pending)
+        with span("fit.log"):
+            emit(pending)
     return state
