@@ -5,10 +5,11 @@ Port of ``freesplat_tpu/evaluation/harness.py::run_test``.  Per scene:
 timed encoder forward -> chunked rendering of the target views -> PSNR,
 SSIM (+ LPIPS under 100 frames), split into interpolation and
 extrapolation blocks on FVS scenes -> rendered-depth metrics against the
-sensor depth -> frame and depth-colormap dumps; then the view-weighted
-per-scene averages and ``benchmark.json``, ``peak_memory.json`` (the
-port's own format, ``utils/benchmarker.py``) and ``stats.json`` under
-``test.output_path``.  Without ``batches`` it reads the configured
+sensor depth -> frame and depth-colormap dumps, encoded on writer
+threads while the next scene runs; then, every file written, the
+view-weighted per-scene averages and ``benchmark.json``,
+``peak_memory.json`` (the port's own format, ``utils/benchmarker.py``)
+and ``stats.json`` under ``test.output_path``.  Without ``batches`` it reads the configured
 dataset (``main.make_batches``).  ``test.encode_view_chunk`` encodes a
 scene in chunks of views (``make_chunked_encode``, the whole-scene path).
 ``test.save_ply`` writes each scene's valid Gaussians to
@@ -22,6 +23,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Iterable
 
@@ -44,7 +48,7 @@ from ..utils.benchmarker import Benchmarker
 from ..utils.device import resolve_device
 from ..utils.flax_bridge import load_flax_variables
 from ..utils.ply_export import export_ply
-from ..utils.profiling import active, count, host_array, host_value, span, timed, upload
+from ..utils.profiling import count, host_array, host_value, span, timed, upload
 from ..utils.visualization import depth_to_color
 from .video import render_video_interpolation, render_video_wobble
 
@@ -70,15 +74,61 @@ _SCENE_TIMINGS = {
 }
 
 
-def _save_image(array: np.ndarray, path: Path, kind: str) -> None:
-    """One PNG file: a ``dumps.png`` span, counted in ``png_files`` and
-    ``png_bytes``."""
-    with span("dumps.png", kind=kind):
-        path.parent.mkdir(parents=True, exist_ok=True)
-        Image.fromarray((np.clip(np.asarray(array), 0, 1) * 255).astype(np.uint8)).save(path)
-    if active() is not None:
-        count("png_files", 1)
-        count("png_bytes", path.stat().st_size)
+def _write_png(array: np.ndarray, path: Path) -> tuple[int, float]:
+    """One PNG file as the dumps write it: clipped to [0, 1], times 255,
+    truncated to uint8, saved with Pillow's defaults.  Returns the file's
+    bytes and the writer's host milliseconds."""
+    t0 = time.perf_counter()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray((np.clip(np.asarray(array), 0, 1) * 255).astype(np.uint8)).save(path)
+    return path.stat().st_size, 1e3 * (time.perf_counter() - t0)
+
+
+class _PngWriter:
+    """A scene's PNG dumps, encoded on a pool of writer threads while the
+    scene loop goes on to the next scene's upload, encode and renders.
+    Threads overlap that work because Pillow's PNG encoder and numpy's
+    large ufuncs release the GIL.  The pool has one thread a core the
+    process may use, less one for the scene loop, and at least one.
+
+    ``submit(unit, files)`` first joins the previous scene's files
+    (``wait``), then hands this scene's to the pool: at most two scenes'
+    arrays are on the host.  The jobs get numpy arrays only, never a
+    tensor.  ``wait()`` joins the outstanding scene's files in a span
+    ``dumps.wait`` and counts them, on the calling thread and under that
+    scene's unit (the writers record nothing): ``png_hidden`` (the files
+    already written when the wait began), and a file each ``png_files``,
+    ``png_bytes`` and ``png_ms`` (the writer's host time; attribute
+    ``kind``).  It re-raises the first writer error, in submission order.
+    ``close()`` lets the files handed over finish and joins the threads."""
+
+    def __init__(self):
+        workers = max(1, len(os.sched_getaffinity(0)) - 1)
+        self._pool = ThreadPoolExecutor(workers, thread_name_prefix="png-writer")
+        self._unit: Any = None
+        self._jobs: list[tuple[str, Future]] = []
+
+    def submit(self, unit: Any, files: Iterable[tuple[str, np.ndarray, Path]]) -> None:
+        self.wait()
+        self._unit = unit
+        self._jobs = [(kind, self._pool.submit(_write_png, array, path))
+                      for kind, array, path in files]
+
+    def wait(self) -> None:
+        jobs, unit = self._jobs, self._unit
+        self._jobs = []
+        with span("dumps.wait"):
+            hidden = sum(f.done() for _, f in jobs)
+            results = [(kind, f.result()) for kind, f in jobs]
+        if jobs:
+            count("png_hidden", hidden, unit=unit)
+        for kind, (nbytes, ms) in results:
+            count("png_files", 1, unit=unit)
+            count("png_bytes", nbytes, unit=unit)
+            count("png_ms", ms, kind=kind, unit=unit)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
 
 
 def make_chunked_encode(
@@ -219,14 +269,26 @@ def run_test(
     ``run_test.setup``; per scene ``scene`` (the scene's name its unit)
     with ``scene.upload``, ``encode`` (the chunked encode's phases, or the
     encoder's spans), ``decode`` (a ``render`` a view), ``scene.metrics``,
-    ``scene.readback`` (the host copies), ``scene.dumps`` (a ``dumps.png``
-    a file, attribute ``kind``), ``scene.ply`` and ``scene.video``; then
-    ``run_test.stats``.  Each read or copy that waits for the device is
-    counted in ``host_syncs``; the PNGs in ``png_files`` and ``png_bytes``.
+    ``scene.readback`` (the host copies), ``scene.dumps`` (the scene's
+    PNGs handed to the writer threads, after a ``dumps.wait`` for the
+    previous scene's), ``scene.ply`` and ``scene.video``; then
+    ``run_test.stats`` (first a ``dumps.wait`` for the last scene's
+    files).  Each read or copy that waits for the device is counted in
+    ``host_syncs``.  The PNGs are encoded on writer threads
+    (``_PngWriter``; Pillow's PNG encoder and numpy's large ufuncs release
+    the GIL) while the loop goes on with the next scene: at most two
+    scenes' arrays are on the host, every file is on disk before
+    ``stats.json`` is written, a writer's error is raised from here, and
+    no writer thread outlives the call.  Counted under the scene that
+    wrote them, when they are joined: ``png_files``, ``png_bytes`` and
+    ``png_ms`` (a writer's host time, attribute ``kind``: color / gt /
+    context / depth) a file, and ``png_hidden`` (the files already
+    written when the loop came to wait for them).
     ``timings``, if given, collects per scene "encoder_s",
     "decoder_s_per_view", "metrics_s" and "dumps_s" (host clock around
     synchronized device work: the spans ``encode``, ``decode``,
-    ``scene.metrics``, ``scene.readback`` to ``scene.dumps``), "ply_s"
+    ``scene.metrics``, ``scene.readback`` to ``scene.dumps``: the dump
+    time the loop still pays, readback, hand-off and wait), "ply_s"
     with ``test.save_ply``, "video_s" with ``test.save_video``, and with
     ``test.encode_view_chunk`` the chunked encode's phases
     (``make_chunked_encode``).  Without it nothing synchronizes but the
@@ -289,6 +351,7 @@ def run_test(
             decoder_cfg = dataclasses.replace(
                 cfg.decoder, capacity_factor=cfg.test.render_capacity_factor
             )
+        pngs = _PngWriter() if rank == 0 else None  # one writer under view_shard
 
     def on_device(views: dict, keys) -> dict:
         return {k: upload(views[k], device, "scene.upload") for k in keys if k in views}
@@ -363,7 +426,7 @@ def run_test(
                 flush=True,
             )
 
-        writer = rank == 0  # one writer under view_shard
+        writer = pngs is not None
         with span("scene.readback"):
             if writer:
                 color_np = host_array(color, "scene.readback")
@@ -378,17 +441,17 @@ def run_test(
         with span("scene.dumps"):
             if writer:
                 # Frame dumps (FVS split into interpolation/extrapolation dirs).
+                files = []
                 for vi in range(v):
                     sub = ("extrapolation" if vi >= v - test_fvs else "interpolation"
                            ) if test_fvs > 0 else "color"
-                    _save_image(color_np[vi], out_dir / scene / sub / f"{vi:04}.png", "color")
-                    _save_image(gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png", "gt")
-                for vi, image in enumerate(context_np):
-                    _save_image(image, out_dir / scene / "context" / f"{vi:04}.png", "context")
-                for sub, maps in depth_np.items():
-                    for vi, d in enumerate(maps):
-                        _save_image(depth_to_color(d), out_dir / scene / sub / f"{vi:04}.png",
-                                    "depth")
+                    files.append(("color", color_np[vi], out_dir / scene / sub / f"{vi:04}.png"))
+                    files.append(("gt", gt_np[vi], out_dir / scene / sub / f"{vi:04}_gt.png"))
+                files += [("context", image, out_dir / scene / "context" / f"{vi:04}.png")
+                          for vi, image in enumerate(context_np)]
+                files += [("depth", depth_to_color(d), out_dir / scene / sub / f"{vi:04}.png")
+                          for sub, maps in depth_np.items() for vi, d in enumerate(maps)]
+                pngs.submit(scene, files)
 
         # Gaussian point-cloud export (reference encoder visualizer /
         # export pathway; covariances already decomposed by the adapter).
@@ -416,36 +479,42 @@ def run_test(
                 render_video_interpolation(*vid_args, out_dir / scene / "interpolation.mp4")
         return entry
 
-    per_scene: list[dict[str, Any]] = []
-    for scene_i, batch in enumerate(batches):
-        if max_scenes is not None and scene_i >= max_scenes:
-            break
-        with timed(timings, _SCENE_TIMINGS), span("scene", unit=batch["scene"][0]):
-            entry = test_scene(batch)
-        per_scene.append(entry)
-        print(f"[test] {entry['scene']}: " + " ".join(
-            f"{k}={val:.4g}" for k, val in entry.items() if k != "scene"
-        ), flush=True)
+    try:
+        per_scene: list[dict[str, Any]] = []
+        for scene_i, batch in enumerate(batches):
+            if max_scenes is not None and scene_i >= max_scenes:
+                break
+            with timed(timings, _SCENE_TIMINGS), span("scene", unit=batch["scene"][0]):
+                entry = test_scene(batch)
+            per_scene.append(entry)
+            print(f"[test] {entry['scene']}: " + " ".join(
+                f"{k}={val:.4g}" for k, val in entry.items() if k != "scene"
+            ), flush=True)
 
-    with span("run_test.stats"):
-        # Weighted per-scene averages (weights = view counts; mw:479-504) of
-        # every key any scene has, each over the scenes that have it (the JAX
-        # harness takes the first scene's keys only, so a run that mixes FVS
-        # and plain scenes loses the keys its first scene lacks).
-        summary: dict[str, float] = {}
-        if per_scene:
-            weights = np.asarray([e["num_views"] for e in per_scene], np.float64)
-            for key in dict.fromkeys(k for e in per_scene for k in e):
-                if key in ("scene", "num_views"):
-                    continue
-                vals = np.asarray([e.get(key, np.nan) for e in per_scene])
-                ok = np.isfinite(vals)
-                if ok.any():
-                    summary[key] = float(np.sum(vals[ok] * weights[ok]) / np.sum(weights[ok]))
-        if rank == 0:
-            benchmarker.dump(out_dir / "benchmark.json")
-            benchmarker.dump_memory(out_dir / "peak_memory.json")
-            with open(out_dir / "stats.json", "w") as f:
-                json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
+        with span("run_test.stats"):
+            if pngs is not None:
+                pngs.wait()  # every file on disk before the stats
+            # Weighted per-scene averages (weights = view counts; mw:479-504) of
+            # every key any scene has, each over the scenes that have it (the JAX
+            # harness takes the first scene's keys only, so a run that mixes FVS
+            # and plain scenes loses the keys its first scene lacks).
+            summary: dict[str, float] = {}
+            if per_scene:
+                weights = np.asarray([e["num_views"] for e in per_scene], np.float64)
+                for key in dict.fromkeys(k for e in per_scene for k in e):
+                    if key in ("scene", "num_views"):
+                        continue
+                    vals = np.asarray([e.get(key, np.nan) for e in per_scene])
+                    ok = np.isfinite(vals)
+                    if ok.any():
+                        summary[key] = float(np.sum(vals[ok] * weights[ok]) / np.sum(weights[ok]))
+            if rank == 0:
+                benchmarker.dump(out_dir / "benchmark.json")
+                benchmarker.dump_memory(out_dir / "peak_memory.json")
+                with open(out_dir / "stats.json", "w") as f:
+                    json.dump({"per_scene": per_scene, "summary": summary}, f, indent=2)
+    finally:
+        if pngs is not None:
+            pngs.close()
     print("[test] summary:", json.dumps(summary, indent=2), flush=True)
     return summary

@@ -256,8 +256,17 @@ def test_chunked_run_test_span_tree_and_timings(tmp_path, fast_init):
     assert [tree["spans"][i]["attrs"]["chunk"] for i in trunks] == [0, 2]
     assert all(names(tree, kids[t]) == ENCODER[:3] for t in trunks)
     assert names(tree, kids[decode]) == ["render", "render"]
-    kinds = collections.Counter(tree["spans"][i]["attrs"]["kind"] for i in kids[dumps])
+    # The scene's files go to the writer threads after a wait for the
+    # previous scene's (none here); run_test.stats first waits for them.
+    assert names(tree, kids[dumps]) == ["dumps.wait"]
+    assert names(tree, kids[kids[-1][2]]) == ["dumps.wait"]
+    pngs_counted = [c for c in tree["counters"] if c["name"].startswith("png_")]
+    assert {c["unit"] for c in pngs_counted} == {"s1"}
+    kinds = collections.Counter(c["attrs"]["kind"] for c in pngs_counted
+                                if c["name"] == "png_ms")
     assert kinds == {"color": 2, "gt": 2, "context": 4, "depth": 6}
+    hidden = [c["value"] for c in pngs_counted if c["name"] == "png_hidden"]
+    assert len(hidden) == 1 and 0 <= hidden[0] <= len(pngs)
     totals = {n: sum(c["value"] for c in tree["counters"] if c["name"] == n)
               for n in ("png_files", "png_bytes")}
     assert totals["png_files"] == len(pngs)
