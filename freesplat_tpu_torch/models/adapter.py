@@ -15,6 +15,10 @@ from ..ops.mathutil import safe_normalize
 from ..utils.profiling import synced_inside, upload
 
 
+# The least scale logit; see ``build_gaussians``.
+SCALE_LOGIT_MIN = -80.0
+
+
 @dataclass(frozen=True)
 class GaussianAdapterCfg:
     gaussian_scale_min: float = 0.5
@@ -91,6 +95,13 @@ def build_gaussians(
     rot_raw = raw[..., 3:7]
     sh = raw[..., 7:]
     s_min, s_max = cfg.gaussian_scale_min, cfg.gaussian_scale_max
+    # 1 / (1 + exp(-x)) has a NaN backward where exp(-x) overflows (x < -88.7
+    # in float32: 0 * inf), and one such logit among a step's Gaussians
+    # makes every gradient NaN.  Clamped at SCALE_LOGIT_MIN, the scales keep
+    # every bit (1 / (1 + exp(80)) = 1.8e-35 is far under the rounding of
+    # any s_min > 1e-27), and the gradient below it is 0, where the exact
+    # one is under 1.8e-35.
+    scales_raw = scales_raw.clamp(min=SCALE_LOGIT_MIN)
     scales = s_min + (s_max - s_min) * (1.0 / (1.0 + torch.exp(-scales_raw)))
     scales = scales * depths[..., None] * scale_multiplier(intrinsics, image_shape)
     rotations = safe_normalize(rot_raw)

@@ -18,7 +18,16 @@ tail slots would never project, win or be scattered into (the JAX
 package's bucketed path grows its buffer for the same reason, in
 buckets because XLA needs static shapes).  Without a gradient the buffer
 is updated in place; with one, each view works on a copy, as autograd
-needs.
+needs, and a merge weighs its two densities each raised by
+``DENSITY_FLOOR``, which keeps its average and gradient finite where
+densities round to 0 (``_fuse_one_view``).
+
+While a recorder is active (``utils/profiling.py``), the backward pass
+through the fusion is the span ``encoder.ptf.backward``, each view's
+merged pixels are the counter ``ptf_merged`` (a device tensor, read at
+the recorder's flush), and the bytes those copies write (the live
+prefix's clone and the tail's concatenation, with the validity mask) are
+``ptf_copy_bytes`` (from the shapes, on the host).
 
 The gather of the winning slots is ``index_select``, not
 ``ops/gather.py::take_rows``: unmatched pixels read slot 0, but their rows
@@ -33,8 +42,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..utils.profiling import synced_inside
+from ..utils.profiling import active, backward_span, count, synced_inside
 from .networks import positional_encoding
+
+
+# Added to each density a merge averages by under autograd, so that the
+# average's backward stays finite; see ``_fuse_one_view``.
+DENSITY_FLOOR = 1e-18
 
 
 class PTFState(NamedTuple):
@@ -98,6 +112,9 @@ def fuse_views(
                         extrinsics[0].reshape(1, 16).expand(hw, 16))
     valid = torch.zeros(g, dtype=torch.bool, device=feats.device)
     valid[:hw] = True
+    recorded = active() is not None
+    row_bytes = (c + 22) * packed.element_size() + valid.element_size()
+    copied = 0
     for i in range(1, v):
         live = (i + 1) * hw
         p, vd = _fuse_one_view(
@@ -108,6 +125,11 @@ def fuse_views(
         if not inplace:  # copies: keep the buffer's tail beyond the prefix
             packed = p if live == g else torch.cat([p, packed[live:]])
             valid = vd if live == g else torch.cat([vd, valid[live:]])
+            copied += (live + (g if live != g else 0)) * row_bytes
+    if recorded and not inplace:
+        count("ptf_copy_bytes", copied)
+        backward_span("encoder.ptf.backward", [packed],
+                      [feats, coords, densities, weights, depths])
     return PTFState(
         feat=packed[:, :c],
         density=packed[:, c : c + 1],
@@ -177,6 +199,8 @@ def _fuse_one_view(
     zbuf = torch.where(torch.isfinite(zmin), zmin, 1e4)
     fusion_mask = (zbuf - depth_i).abs() < torch.clamp(depth_i * 0.05, min=depth_thres)
     matched = fusion_mask & has_winner
+    if active() is not None:
+        count("ptf_merged", matched.sum(), view=i)
 
     gathered = packed.index_select(0, torch.where(matched, winner, 0))
     g_feat = gathered[:, :c]
@@ -193,6 +217,16 @@ def _fuse_one_view(
 
     w0 = g_density
     w1 = density_i
+    if not inplace:
+        # Densities are sigmoids: under a logit of -104 they are 0, and the
+        # average 0 / 0 is a NaN Gaussian that the renderer culls but whose
+        # gradient (0 times NaN) makes every gradient NaN; over a subnormal
+        # sum the division's backward overflows.  DENSITY_FLOOR added
+        # to each weight leaves every density of 3e-11 or more as it is (it
+        # is under half its rounding step) and turns the weights of two
+        # lesser ones smoothly towards equal: a threshold would flip whole
+        # regions of like densities together on a rounding difference.
+        w0, w1 = w0 + DENSITY_FLOOR, w1 + DENSITY_FLOOR
     denom = w0 + w1
     fused = _pack(
         fused_feat,

@@ -70,6 +70,8 @@ _STEP_TIMINGS = {
     "forward_s": ("step.forward", "loss"),
     "backward_s": ("step.backward", "step.backward"),
     "optimizer_s": ("step.optimizer", "step.optimizer"),
+    "ptf_s": ("encoder.ptf", "encoder.ptf"),
+    "ptf_backward_s": ("encoder.ptf.backward", "encoder.ptf.backward"),
 }
 
 
@@ -111,12 +113,15 @@ def make_train_step(
     ``metrics`` holds 0-d tensors (no host sync): ``loss``, ``psnr``,
     ``gs_ratio``, ``num_gaussians``, ``dropped_instances`` and one
     ``loss_<part>`` per loss term.  ``timings``, if given, collects per
-    step "forward_s", "backward_s" and "optimizer_s" (host clock around
-    synchronized device work; the syncs cost the step its overlap): the
-    view ``utils/profiling.py::timed`` takes of the spans ``step.forward``
-    to ``loss``, ``step.backward`` and ``step.optimizer``.  The spans
-    (and ``step.upload``, ``encoder``, the renders') go to the active
-    recorder, with the counter ``dropped_instances`` every step."""
+    step "forward_s", "backward_s", "optimizer_s", "ptf_s" and
+    "ptf_backward_s" (host clock around synchronized device work; the
+    syncs cost the step its overlap): the view
+    ``utils/profiling.py::timed`` takes of the spans ``step.forward`` to
+    ``loss``, ``step.backward``, ``step.optimizer``, ``encoder.ptf`` and
+    ``encoder.ptf.backward`` (PTF's part of the backward pass, inside
+    ``step.backward``).  The spans (and ``step.upload``, ``encoder``, the
+    renders') go to the active recorder, with the counter
+    ``dropped_instances`` every step."""
     schedule = make_schedule(cfg.optimizer)
     world = group_rank(group)[1]
     dc = cfg.loss.depth

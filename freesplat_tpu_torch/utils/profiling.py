@@ -22,7 +22,7 @@ a device tensor stay unresolved until ``flush()``, which the caller calls
 after its stretch or where it blocks anyway.  While ``torch.profiler``
 records, each span is also a ``record_function`` range, and ``annotate``
 is ``span`` (a ``record_function`` range alone while no recorder is
-active).
+active).  ``backward_span`` marks a stretch of autograd's backward pass.
 
 ``timed(timings, keys)`` is ``timings=``'s view of the spans: inside it
 the spans the keys name synchronize the device at both ends, and on exit
@@ -267,6 +267,37 @@ def span(name: str, **attrs):
     if rec is None:
         return _NO_SPAN
     return _Span(rec, name, attrs)
+
+
+def backward_span(name: str, outputs, inputs) -> None:
+    """Mark the backward pass through the graph from ``inputs`` to
+    ``outputs`` as span ``name`` of the active recorder: it opens when the
+    first of the outputs' gradients arrives and closes when every input's
+    gradient is ready (autograd tensor hooks).  Nothing is registered
+    without a recorder or a gradient to record.  The hooks hold the
+    recorder itself: on a card, autograd runs them on its own thread,
+    where the context variable is unset; the caller's thread waits in
+    ``backward()`` meanwhile, so one thread records at a time."""
+    rec = _ACTIVE.get()
+    if rec is None or not torch.is_grad_enabled():
+        return
+    outputs = [t for t in outputs if t.requires_grad]
+    inputs = [t for t in inputs if t.requires_grad]
+    if not outputs or not inputs:
+        return
+    opened: list[int] = []
+
+    def open_(grad):
+        if not opened:
+            opened.append(rec.enter(name, {}))
+
+    def close(grads):
+        if opened:
+            rec.exit(opened.pop())
+
+    for t in outputs:
+        t.register_hook(open_)
+    torch.autograd.graph.register_multi_grad_hook(inputs, close)
 
 
 def count(name: str, value, **attrs) -> None:

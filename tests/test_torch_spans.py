@@ -164,7 +164,7 @@ def test_fit_span_tree_timings_and_unlogged_drop(monkeypatch, fast_init):
     assert logged == logged_off == {}
 
     assert {k: len(v) for k, v in timings.items()} == {
-        "forward_s": 1, "backward_s": 1, "optimizer_s": 1}
+        "forward_s": 1, "backward_s": 1, "optimizer_s": 1, "ptf_s": 1, "ptf_backward_s": 1}
     tree = rec.flush()
     kids = children(tree)
     assert names(tree, kids[-1]) == ["step"]
@@ -192,6 +192,42 @@ def test_fit_span_tree_timings_and_unlogged_drop(monkeypatch, fast_init):
         "decoder.render_view": views, "render.binning": 5 * views}
     assert rec.totals("slots") == {1: 128 * views}
     assert rec.totals("instances")[1] > 128 * views
+
+
+def test_ptf_backward_span_and_counters(monkeypatch, fast_init):
+    """PTF's backward is a span inside ``step.backward``, its merges and
+    copies are counters; with no recorder and no ``timings=`` the step
+    registers no autograd hook."""
+    cfg = _train_cfg()
+    batch = next(tsyn.synthetic_batches(tsyn.SyntheticCfg(image_shape=(32, 32)), device="cpu"))
+    state = init_state(cfg, seed=3, device="cpu")
+    hooks = []
+    register = torch.Tensor.register_hook
+    monkeypatch.setattr(torch.Tensor, "register_hook",
+                        lambda t, fn: hooks.append(fn) or register(t, fn))
+
+    state = fit(cfg, state, iter([batch]), 1)
+    assert hooks == []
+
+    rec = Recorder()
+    with recording(rec):
+        fit(cfg, state, iter([batch]), 2)
+    assert hooks
+    tree = rec.flush()
+    kids = children(tree)
+    root = kids[-1][0]
+    backward = kids[root][3]
+    assert names(tree, [backward]) == ["step.backward"]
+    assert names(tree, kids[backward]) == ["encoder.ptf.backward"]
+    inner = tree["spans"][kids[backward][0]]
+    assert inner["unit"] == 1 and inner["t0_ns"] < inner["t1_ns"]
+    # Two contexts of 32x32: one fusion round, which copies the buffer's
+    # two views (64 features, 22 more columns of float32, and the mask).
+    hw = 32 * 32
+    merged = [c for c in tree["counters"] if c["name"] == "ptf_merged"]
+    assert [c["attrs"] for c in merged] == [{"view": 1}]
+    assert 0 <= merged[0]["value"] <= hw
+    assert rec.totals("ptf_copy_bytes") == {1: 2 * hw * ((64 + 22) * 4 + 1)}
 
 
 def _scene(seed, v_ctx=4, v_tgt=2, h=32, w=32):
