@@ -34,6 +34,15 @@ with ``--keep`` the curve and stats files copied into DIR.
    (another tree's sources) are also held against these there and timed
    beside them in turns (baseline, this, this, baseline), and likewise
    ``DIR/gather_rows.cu`` in phase 6.
+   ``[plane_sweep]``: the fused plane sweep (``csrc/plane_sweep.cu``)
+   against ``CostVolume``'s plane-chunk loop on the card at the
+   whole-scene chunk (15 views x 4 sources) and the 2-view shape (2 x 1),
+   96x128, c = 48, D = 128 over 0.5-15 m, heads from a seed: max |fused -
+   loop| over max |loop| within SWEEP_TOL (the share of bit-equal rows
+   printed), two calls bit-equal, one launch a call; samples off the map on every side and behind their
+   source are counted, and views whose every source is behind read the
+   head of 0 at every row (the 1e-8 denominator).  Device ms of both and
+   the bound.
 4. Serving: the ``scannet/2views`` preset (384x512, 2 context views,
    D = 128, fp32) with weights from a seed serves 3 numpy-made scenes of
    3 target views through ``run_test`` with the preset's defaults: PSNR,
@@ -86,7 +95,8 @@ with ``--keep`` the curve and stats files copied into DIR.
    (``encoder.compute_dtype``): per scene the phase split (A match,
    geometry, B trunk per chunk, C1 PTF, C2 head), render ms a view,
    num_gaussians, gs_ratio, dropped and the peak memory; one forward
-   launch a target view; bfloat16's warm encode beside float32's.  The
+   launch a target view, one plane sweep a trunk chunk in float32 and
+   none in bfloat16; bfloat16's warm encode beside float32's.  The
    witness: the first 5 views of the first scene encoded again on the
    card and, with the same weights, on the host CPU, in both dtypes;
    ``depth_s-1`` held within WITNESS_LIMITS (card against host, bfloat16
@@ -197,6 +207,7 @@ with ``--keep`` the curve and stats files copied into DIR.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -237,6 +248,20 @@ TRAIN_TARGET_VIEWS = 8  # the ScanNet train sampler's num_target_views
 # one value read and one value written (12 B); the wrap, the range test and
 # the address take 4 integer operations.
 GATHER_BYTES_PER_ELEM, GATHER_OPS_PER_ELEM = 12, 4
+# Plane sweep, counted from csrc/plane_sweep.cu: a (pixel, plane, source)
+# sample projects its point, weighs and tests its four taps (50
+# operations), and per channel weighs and adds the taps, takes the dot and
+# adds the view sum (10); a (pixel, plane) row divides its c + 1 averages
+# and runs the head: 2 (c + 1) 32 + 2 x 32 x 32 + 2 x 32 for the
+# multiply-adds, 5 x 32 + 1 for biases and activations.
+SWEEP_OPS_PER_SAMPLE, SWEEP_OPS_PER_SAMPLE_CHANNEL = 50, 10
+# The fused volume against the plane-chunk loop on the card: max |fused -
+# loop| over max |loop|, fixed before the kernel's first run.  Both are
+# float32 and the kernel adds in the loop's order (the share of bit-equal
+# rows is printed); a head summed in another order read ~2e-7, a count of
+# sources off by one (a dot that rounds to 0 in one order only) 0.05, and
+# a wrong tap, weight or layout moves the volume by its scale.
+SWEEP_TOL = 1e-4
 CLI_STEPS = 4
 DEPTH_STEPS = 2  # depth-supervised fit steps
 WS_VIEWS, WS_TARGETS = 30, 4  # whole scene: context and target views
@@ -704,10 +729,11 @@ def gaussian_view_inputs(g, tgt, capacity_factor, view=0):
 
 def _count_dicts():
     from freesplat_tpu_torch.ops import gather as G
+    from freesplat_tpu_torch.ops import plane_sweep as PS
     from freesplat_tpu_torch.ops import rasterizer as R
     from freesplat_tpu_torch.scripts import probe_r3
 
-    return R.launch_count, probe_r3.launch_count, G.launch_count
+    return R.launch_count, probe_r3.launch_count, G.launch_count, PS.launch_count
 
 
 def launch_counts() -> dict:
@@ -721,14 +747,18 @@ def reset_launch_counts():
             d[k] = 0
 
 
-def check_test_outputs(out: Path, summary: dict, launches: dict, views: int, label: str):
+def check_test_outputs(out: Path, summary: dict, launches: dict, views: int, sweeps: int,
+                       label: str):
     """What ``run_test`` must leave after a run: finite summary values
     with SSIM <= 1, the FVS split and the depth metrics, the stats files
     and each scene's frame folders, and the forward kernel launched once
-    per target view, no other kernel."""
+    per target view, the plane sweep once per trunk call (``sweeps``: a
+    scene, or a chunk of one), no other kernel."""
     if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
-                                         "gather_rows": 0, "segment_sum": 0}:
-        raise AssertionError(f"{label} launches {launches} for {views} target views")
+                                         "gather_rows": 0, "segment_sum": 0,
+                                         "plane_sweep": sweeps}:
+        raise AssertionError(f"{label} launches {launches} for {views} target views and "
+                             f"{sweeps} trunk calls")
     if not all(math.isfinite(v) for v in summary.values()):
         raise AssertionError(f"{label}: non-finite summary {summary}")
     ssim = {k: v for k, v in summary.items() if k == "ssim" or k.endswith("_ssim")}
@@ -791,7 +821,7 @@ def slice_run():
         wall = time.perf_counter() - t0
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
-        check_test_outputs(out, summary, launches, views, "serving")
+        check_test_outputs(out, summary, launches, views, len(scenes), "serving")
         if SERVE_DUMPS is not None:
             import shutil
 
@@ -869,7 +899,8 @@ def train_run():
     want = TRAIN_TARGET_VIEWS * TRAIN_STEPS
     sums = TRAIN_STEPS * segment_sums_per_step(cfg, 2, TRAIN_TARGET_VIEWS)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
-                                         "gather_rows": 0, "segment_sum": sums}:
+                                         "gather_rows": 0, "segment_sum": sums,
+                                         "plane_sweep": 0}:
         raise AssertionError(f"training launches {launches}, want {want} of each rasterizer "
                              f"kernel and {sums} segment sums")
     if [s for s, _ in logged] != list(range(TRAIN_STEPS)):
@@ -980,7 +1011,8 @@ def train_depth_run():
     # The multi-view depth term gathers once a step.
     sums = DEPTH_STEPS * (segment_sums_per_step(cfg, 2, TRAIN_TARGET_VIEWS) + 1)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
-                                         "gather_rows": 0, "segment_sum": sums}:
+                                         "gather_rows": 0, "segment_sum": sums,
+                                         "plane_sweep": 0}:
         raise AssertionError(f"depth-supervised launches {launches}, want {want} of each "
                              f"rasterizer kernel and {sums} segment sums")
     parts = [f"loss_depth_{k}" for k in ("grad", "si", "normals", "mv")]
@@ -1074,7 +1106,7 @@ def replica_run():
         launches = launch_counts()
         stats = json.loads((out / "stats.json").read_text())
         summary = stats["summary"]
-        check_test_outputs(out, summary, launches, 4, "replica")
+        check_test_outputs(out, summary, launches, 4, 1, "replica")
         (entry,) = stats["per_scene"]
         if (entry["scene"], entry["num_views"]) != ("room0_1", 4):
             raise AssertionError(f"replica scene {entry['scene']} with {entry['num_views']} views")
@@ -1481,7 +1513,7 @@ def re10k_test_run(root: Path, key: str):
     summary = stats["summary"]
     side = RE10K_SIDE
     want = {"rasterize_fwd": targets + RE10K_VIDEO_FRAMES, "rasterize_bwd": 0,
-            "gather_rows": 0, "segment_sum": 0}
+            "gather_rows": 0, "segment_sum": 0, "plane_sweep": 1}
     if DEVICE == "cuda" and launches != want:
         raise AssertionError(f"re10k_test launches {launches}, want {want}")
     if not all(math.isfinite(summary.get(k, math.nan)) for k in ("psnr", "ssim", "lpips")):
@@ -1614,6 +1646,163 @@ def gather_phase():
         log(f"[time]   gather_rows ({rows},{lanes}) baseline vs this tree, device ms in turns "
             f"(baseline, this, this, baseline): {', '.join(f'{t:.4f}' for t in turns)}")
     return err, (dev["kernel"], dev["plain"], dev["torch.gather"], *bound)
+
+
+def sweep_case(seed: int, b: int, s: int, behind: dict, h=96, w=128, c=48, d=128):
+    """A ``CostVolume`` whose head is drawn from ``seed`` and its inputs on
+    DEVICE: ``b`` views at matching resolution h x w, each swept against
+    ``s`` sources over D = ``d`` planes from 0.5 to 15 m.  Source j of a
+    view sits 0.1 to 0.6 m along +x, -x, +y, -y in turn, turned up to
+    0.15 rad, so near planes project off the map on every side; the first
+    ``behind[i]`` sources of view i are turned round, every point then
+    behind them (z <= 0)."""
+    import torch
+    from freesplat_tpu_torch.models.cost_volume import CostVolume
+
+    rng = np.random.default_rng(seed)
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = 0.75 * w
+    k[0, 2], k[1, 2] = w / 2, h / 2
+    src_T_cur = np.tile(np.eye(4), (b, s, 1, 1))
+    for i in range(b):
+        for j in range(s):
+            yaw, pitch = rng.uniform(-0.15, 0.15), rng.uniform(-0.05, 0.05)
+            if j < behind.get(i, 0):
+                yaw += math.pi
+            ry = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                           [-math.sin(yaw), 0, math.cos(yaw)]])
+            rx = np.array([[1, 0, 0], [0, math.cos(pitch), -math.sin(pitch)],
+                           [0, math.sin(pitch), math.cos(pitch)]])
+            rot = rx @ ry
+            centre = np.zeros(3)
+            centre[j % 4 // 2] = (1 - 2 * (j % 2)) * rng.uniform(0.1, 0.6)
+            centre += 0.02 * rng.standard_normal(3)
+            src_T_cur[i, j, :3, :3] = rot
+            src_T_cur[i, j, :3, 3] = -rot @ centre
+    torch.manual_seed(seed)
+    cv = CostVolume(c, num_depth_bins=d).to(DEVICE).eval()
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(DEVICE)
+
+    args = (dev(rng.standard_normal((b, h, w, c))), dev(rng.standard_normal((b, s, h, w, c))),
+            dev(src_T_cur), dev(np.tile(k, (b, s, 1, 1))), dev(np.tile(np.linalg.inv(k), (b, 1, 1))),
+            dev(np.full(b, 0.5)), dev(np.full(b, 15.0)))
+    return cv, args
+
+
+def sweep_edges(cv, args) -> dict:
+    """How many (view, source, plane, pixel) samples of a case land left
+    of, right of, above and below the map in front of their source, and
+    behind it (z <= 0)."""
+    import torch
+    from freesplat_tpu_torch.models.cost_volume import inverse_depth_planes
+
+    cur, _, src_T_cur, src_K, cur_invK, near, far = args
+    b, h, w, _ = cur.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device=cur.device) + 0.5,
+                            torch.arange(w, device=cur.device) + 0.5, indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)], -1).reshape(-1, 3)
+    rays = torch.einsum("bij,nj->bni", cur_invK[:, :3, :3], pix)
+    depths = inverse_depth_planes(cv.num_depth_bins, near, far)
+    out = {k: 0 for k in ("left", "right", "above", "below", "behind")}
+    for i in range(b):  # one view at a time: (s, D, n, 3) per view
+        cam = rays[i][None] * depths[i][:, None, None]
+        p = torch.einsum("sij,dnj->sdni", (src_K[i] @ src_T_cur[i])[:, :3, :3], cam) \
+            + (src_K[i] @ src_T_cur[i])[:, None, None, :3, 3]
+        z = p[..., 2]
+        uv = p[..., :2] / z[..., None]
+        front = z > 0
+        out["behind"] += int((~front).sum())
+        out["left"] += int((front & (uv[..., 0] < 0)).sum())
+        out["right"] += int((front & (uv[..., 0] >= w)).sum())
+        out["above"] += int((front & (uv[..., 1] < 0)).sum())
+        out["below"] += int((front & (uv[..., 1] >= h)).sum())
+    return out
+
+
+def sweep_bound(args, d: int) -> tuple[float, str, int, int]:
+    """(bound ms, bound by, operations, bytes) of one fused call."""
+    cur, src = args[:2]
+    b, h, w, c = cur.shape
+    s, n = src.shape[1], h * w
+    rows = b * d * n
+    ops = (rows * s * (SWEEP_OPS_PER_SAMPLE + SWEEP_OPS_PER_SAMPLE_CHANNEL * c)
+           + rows * ((c + 1) + 2 * (c + 1) * 32 + 2 * 32 * 32 + 2 * 32 + 5 * 32 + 1))
+    head = (c + 1) * 32 + 32 * 32 + 3 * 32 + 1
+    moved = 4 * (cur.numel() + src.numel() + b * d + b * n * 3 + b * s * 12 + head + rows)
+    return (*_bound(moved, ops), ops, moved)
+
+
+def plane_sweep_phase():
+    """The fused plane sweep (``csrc/plane_sweep.cu``) against the
+    plane-chunk loop of ``CostVolume`` on the card, at the whole-scene
+    chunk (15 views x 4 sources) and the 2-view shape (2 views x 1
+    source), both 96 x 128, c = 48, D = 128 over 0.5-15 m, heads drawn
+    from a seed: within SWEEP_TOL, two calls bit-equal, one launch a call;
+    samples off the map on each side and behind their source counted (the
+    cases together hit each);
+    views whose every source is behind read the head of a zero input (the
+    1e-8 denominator).  Device ms of the fused call and of the loop, with
+    the bound (CUDA events around back-to-back calls).  Returns (max
+    relative error, (ms, plain ms, bound ms, bound by), the 2-view
+    shape's (ms, plain ms, bound ms, bound by))."""
+    import torch
+    from freesplat_tpu_torch.ops import plane_sweep as PS
+
+    worst, times, seen = 0.0, [], collections.Counter()
+    # (label, seed, views, sources, views -> leading sources turned round)
+    cases = (("whole-scene chunk", 21, 15, 4, {1: 1, 2: 4}), ("2-view", 22, 2, 1, {1: 1}))
+    for label, seed, b, s, behind in cases:
+        cv, args = sweep_case(seed, b, s, behind)
+        edges = sweep_edges(cv, args)
+        seen.update(edges)
+        with torch.no_grad():
+            before = PS.launch_count["plane_sweep"]
+            fused, again = cv(*args), cv(*args)
+            sync()
+            if PS.launch_count["plane_sweep"] != before + 2:
+                raise AssertionError(f"[plane_sweep] {label}: the kernel launched "
+                                     f"{PS.launch_count['plane_sweep'] - before} times in 2 calls")
+            cv.kernel_takes = lambda *a: False  # the plane-chunk loop, on the card
+            plain = cv(*args)
+            sync()
+            zero = cv.mlp(torch.zeros(1, args[0].shape[-1] + 1, device=DEVICE))[0, 0]
+            loop_ms = cuda_ms(lambda: cv(*args), 2)
+            del cv.kernel_takes
+            kernel_ms = cuda_ms(lambda: cv(*args), 10)
+        scale = plain.abs().max().item()
+        err = (fused - plain).abs().max().item() / scale
+        same = (fused == plain).float().mean().item()
+        worst = max(worst, err)
+        # Views whose every source is behind: every row's input is 0, so
+        # every row reads one value, the head of 0.
+        all_behind = [i for i, k in behind.items() if k == s]
+        flat = max((fused[i] - zero).abs().max().item() / scale for i in all_behind)
+        one_value = all(bool((fused[i] == fused[i].flatten()[0]).all()) for i in all_behind)
+        if not (torch.isfinite(fused).all() and err <= SWEEP_TOL and torch.equal(fused, again)
+                and flat <= SWEEP_TOL and one_value):
+            raise AssertionError(
+                f"[plane_sweep] {label}: max |fused - loop| / max |loop| {err:.3g} (limit "
+                f"{SWEEP_TOL}), finite {bool(torch.isfinite(fused).all())}, two calls equal "
+                f"{torch.equal(fused, again)}; views {all_behind} with every source behind: one "
+                f"value {one_value}, off the head of 0 by {flat:.3g}")
+        bound_ms, bound_by, ops, moved = sweep_bound(args, cv.num_depth_bins)
+        taps = 4 * 4 * args[1].shape[-1] * b * s * cv.num_depth_bins * fused.shape[1] * fused.shape[2]
+        log(f"[plane_sweep] {label} ({b} views x {s} sources, 96x128, c 48, D 128): max |fused - "
+            f"loop| / max |loop| {err:.3g} (max |loop| {scale:.4g}; limit {SWEEP_TOL}), bit-equal "
+            f"share {same:.6f}, two calls "
+            f"bit-equal, samples off the map / behind {edges}, views {all_behind} with every "
+            f"source behind read the head of 0 ({flat:.3g}); device ms a call: fused "
+            f"{kernel_ms:.4f}, loop {loop_ms:.2f}; bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} "
+            f"GFLOP, {moved / 1e6:.1f} MB), taps read {taps / 1e9:.2f} GB from L1/L2")
+        times.append((kernel_ms, loop_ms, bound_ms, bound_by))
+        del cv, args, fused, again, plain
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    if len(seen) < 5 or min(seen.values()) == 0:
+        raise AssertionError(f"[plane_sweep] the cases miss an edge: {dict(seen)}")
+    return worst, times[0], times[1]
 
 
 def probe_run():
@@ -1880,8 +2069,12 @@ def whole_scene_pass(scenes, overrides, label):
         peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
         stats = json.loads((Path(tmp) / "stats.json").read_text())
     views = WS_TARGETS * len(scenes)
+    # One plane sweep a trunk chunk in float32; bfloat16 takes the loop.
+    sweeps = (len(scenes) * -(-WS_VIEWS // cfg.test.encode_view_chunk)
+              if cfg.encoder.compute_dtype == "float32" else 0)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": views, "rasterize_bwd": 0,
-                                         "gather_rows": 0, "segment_sum": 0}:
+                                         "gather_rows": 0, "segment_sum": 0,
+                                         "plane_sweep": sweeps}:
         raise AssertionError(f"{label} launches {launches} for {views} target views")
     if not all(math.isfinite(v) for v in summary.values()):
         raise AssertionError(f"{label}: non-finite summary {summary}")
@@ -2099,7 +2292,7 @@ def fvt_cli_run():
         launches = launch_counts()
         stats = json.loads((out / "stats.json").read_text())
         summary = stats["summary"]
-        check_test_outputs(out, summary, launches, views, "fvt_cli")
+        check_test_outputs(out, summary, launches, views, 2, "fvt_cli")  # 10 views, 5 a chunk
         (scene,) = stats["per_scene"]
         if (scene["scene"], scene["num_views"]) != (key, views):
             raise AssertionError(f"fvt_cli scene {scene['scene']} with {scene['num_views']} views")
@@ -2152,7 +2345,8 @@ def fvt_train_run():
     want = TRAIN_TARGET_VIEWS * FVT_STEPS
     sums = FVT_STEPS * segment_sums_per_step(cfg, v_ctx, TRAIN_TARGET_VIEWS)
     if DEVICE == "cuda" and launches != {"rasterize_fwd": want, "rasterize_bwd": want,
-                                         "gather_rows": 0, "segment_sum": sums}:
+                                         "gather_rows": 0, "segment_sum": sums,
+                                         "plane_sweep": 0}:
         raise AssertionError(f"fvt training launches {launches}, want {want} of each rasterizer "
                              f"kernel and {sums} segment sums")
     if [s for s, _ in logged] != list(range(FVT_STEPS)):
@@ -2428,7 +2622,8 @@ def weights_phase():
             launches[form] = launch_counts()
             views = scene["target"]["image"].shape[1]
             if DEVICE == "cuda" and launches[form] != {"rasterize_fwd": views, "rasterize_bwd": 0,
-                                                        "gather_rows": 0, "segment_sum": 0}:
+                                                        "gather_rows": 0, "segment_sum": 0,
+                                                        "plane_sweep": 1}:
                 raise AssertionError(f"[weights] launches {launches[form]} for {views} views")
             summary = summaries[form]
             if not all(math.isfinite(v) for v in summary.values()) or summary["dropped_instances"]:
@@ -3589,7 +3784,7 @@ def main(argv=None) -> int:
             f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"tf32 cudnn {torch.backends.cudnn.allow_tf32}")
         t0 = time.perf_counter()
-        names = ["rasterize_fwd", "rasterize_bwd", "gather_rows", "segment_sum"]
+        names = ["rasterize_fwd", "rasterize_bwd", "gather_rows", "segment_sum", "plane_sweep"]
         cuda_build.build_all(names)
         log(f"[build] {names} in {time.perf_counter() - t0:.2f} s")
         for k in names:
@@ -3616,6 +3811,7 @@ def checks(torch, card) -> int:
     dumps = tempfile.TemporaryDirectory()
     SERVE_DUMPS = Path(dumps.name)
     errs = [run_phase("kernel_cases", kernel_cases)]
+    sweep_err, sweep_t, sweep_2v_t = run_phase("plane_sweep", plane_sweep_phase)
     run_phase("native", native_phase)
     bench_err, bench_t = run_phase("bench_scene", bench_scene)
     errs.append(bench_err)
@@ -3717,6 +3913,23 @@ def checks(torch, card) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
+    })
+    ms, plain_ms, bound_ms, bound_by = sweep_t
+    rows.append({
+        "name": "plane_sweep",
+        "route": "cuda",
+        "source": "freesplat_tpu_torch/csrc/plane_sweep.cu",
+        # No TPU kernel: the JAX package sweeps with XLA's gathers.
+        "replaces": None,
+        "launches": paths["serve"]["plane_sweep"],
+        "launches_by_path": {p: c.get("plane_sweep", 0) for p, c in paths.items()},
+        "max_abs_err": sweep_err,  # relative to the volume's max abs
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "two_view": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), sweep_2v_t)),
     })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

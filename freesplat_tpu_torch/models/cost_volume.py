@@ -9,13 +9,22 @@ dimension (every view of every scene), and the ``lax.map`` over plane
 chunks a loop; chunking is numerically neutral.  ``dtype`` is the MLP
 head's compute dtype (flax's ``dtype``); the volume is returned in
 float32.
+
+Where no gradient can flow, on CUDA float32 tensors with a float32 head
+the kernel was built for (``kernel_takes``), one kernel computes the
+``avg_mlp`` volume (``ops/plane_sweep.py``) and the loop is skipped; the
+loop is the path of the CPU, of autograd and of every other case.  Each
+call counts its samples (views x sources x planes x pixels) as
+``plane_sweep_samples`` with ``path`` "fused" or "plain".
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops import plane_sweep as PS
 from ..ops.grid_sample import bilinear_sample
+from ..utils.profiling import count
 from .layers import MLP, cast_at_use
 
 SIMILARITIES = ("avg_mlp", "cosine")
@@ -61,6 +70,22 @@ class CostVolume(nn.Module):
             self.mlp = cast_at_use(
                 MLP(feat_ch + 1, mlp_channels, disable_final_activation=True), dtype)
 
+    def kernel_takes(self, *tensors: torch.Tensor) -> bool:
+        """Whether ``ops/plane_sweep.py``'s kernel computes a call on these
+        inputs, their device aside: ``avg_mlp`` with a float32 head of the
+        kernel's widths, float32 inputs, features of a width it was built
+        for, and no gradient to carry (none enabled, or nothing requiring
+        one)."""
+        if self.similarity != "avg_mlp":
+            return False
+        c = tensors[0].shape[-1]
+        params = list(self.mlp.parameters())
+        return (PS.head_widths(self.mlp) == (c + 1, *PS.HIDDEN) and c in PS.CHANNELS
+                and 1 <= tensors[1].shape[1] <= PS.MAX_SOURCES
+                and all(t.dtype == torch.float32 for t in tensors)
+                and not (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (*tensors, *params))))
+
     def forward(self, cur_feats, src_feats, src_T_cur, src_K, cur_invK,
                 min_depth, max_depth, eps: float = 1e-8):
         b, h, w, c = cur_feats.shape
@@ -68,6 +93,9 @@ class CostVolume(nn.Module):
         d = self.num_depth_bins
         n = h * w
         dev = cur_feats.device
+        args = (cur_feats, src_feats, src_T_cur, src_K, cur_invK, min_depth, max_depth)
+        fused = cur_feats.is_cuda and self.kernel_takes(*args)
+        count("plane_sweep_samples", b * v * d * n, path="fused" if fused else "plain")
         cosine = self.similarity == "cosine"
         plane_chunk = max(1, min(d, self.budget_rows // max(b * v * n, 1)))
         depths = inverse_depth_planes(d, min_depth, max_depth)  # (b, d)
@@ -81,6 +109,9 @@ class CostVolume(nn.Module):
         pix = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1).reshape(-1, 3)
         rays = torch.einsum("bij,nj->bni", cur_invK[:, :3, :3], pix)  # (b, n, 3)
         proj = torch.einsum("bvij,bvjk->bvik", src_K, src_T_cur)[:, :, :3]
+        if fused:
+            return PS.plane_sweep(cur_feats, src_feats, depths, rays, proj,
+                                  PS.pack_head(self.mlp))
         src_flat = src_feats.reshape(b * v, h, w, c)
         if cosine:
             # The warp is linear: warped vectors are renormalized after it.
